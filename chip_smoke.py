@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's forward lookup path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which fails the run (nonzero exit) on any fault:
 
 1. The card: name, count, and ``nvidia-smi``'s name and power limit.
-2. The build: ``csrc/forward.cu`` compiled from this checkout, with the
-   build time and ptxas's register and spill counts for K1 and K2.
-3. A parity grid on the card: K1 (fixed-hotness) and K2 (CSR) against their
+2. The build: ``csrc/forward.cu`` and ``csrc/backward.cu`` compiled from
+   this checkout, with the build time and ptxas's register and spill counts
+   for K1, K2 and K3.
+3. Parity grids on the card. K1 (fixed-hotness) and K2 (CSR) against their
    plain PyTorch versions over the shapes of tests/test_parity_bitwise.py,
    fp32/fp16/bf16 tables with and without low-precision math, int32/int64
    indices and offsets, SUM, weighted SUM and MEAN, zero-hotness samples and
-   capacity padding. Integer-exact tables compare bit for bit; random reals
-   at fp32 rtol = atol = 1e-5, and fp16/bf16 at one ulp of the output in its
-   own type. A small problem is also held to a float64 numpy sum.
-4-6. The main path, with every kernel's launch count set to 0 first and
-   read after, and the plain version made to raise if anything calls it:
+   capacity padding: integer-exact tables bit for bit, random reals at fp32
+   rtol = atol = 1e-5 and fp16/bf16 at one ulp of the output. K3 (the
+   sorted-COO backward) against its plain version over the shapes of
+   tests/test_pallas_backward.py, widths 2, 36 and 514, a run over more than
+   three chunks and an empty COO, for fp32/fp16/bf16 grad_y, int32/int64
+   indices, with and without weights, full and compressed, with sentinel
+   padding, an nnz prefix and an initial gradient: integer-exact data bit
+   for bit, random reals each within its recursive-sum bound of a float64
+   sum, and every case launched twice with the same bits.
+4. The serving path, with every kernel's launch count set to 0 first and
+   read after, and the plain versions made to raise if anything calls them:
    the flagship fixed request (10M x 256 fp16 table, batch 65536, hotness
    64, alpha 1.15 power-law ids, int64) through ``embedding_lookup``; the
-   flagship CSR requests (per-sample hotness U{0..64}, int64 indices and
-   offsets, capacity padding), weighted SUM and MEAN with and without
-   low-precision math, through ``embedding_lookup_csr``; and an
-   ``EmbeddingBag`` at 100K x 32 fp32 (batch 1024, hotness 8) and at the
-   flagship size serving 5 batches each. Every output is then compared with
-   the plain version, and K1 and K2 are timed (CUDA events, L2 flushed
-   between launches) beside the plain version, ``F.embedding_bag`` (a
-   yardstick only; the port never calls it) and the least time an H100
-   could take (unique rows touched, indices and output, over 3.35 TB/s).
+   flagship CSR requests (per-sample hotness U{0..64}, capacity padding),
+   weighted SUM and MEAN with and without low-precision math, through
+   ``embedding_lookup_csr``; and an ``EmbeddingBag`` at 100K x 32 fp32 and
+   at the flagship size serving 5 batches each. Outputs are compared with
+   the plain version; K1 and K2 are timed (CUDA events, L2 flushed between
+   launches) beside the plain version, ``F.embedding_bag`` (a yardstick
+   only; the port never calls it) and the least time an H100 could take.
+5. The training path (BASELINE.json config 4), counted the same way, on a
+   10M x 256 bf16 ``EmbeddingBag``: three dense steps (autograd through
+   K1, the transpose and K3 full mode, then ``torch.optim.SGD``), three
+   row-wise AdaGrad steps and one sparse SGD step (K3 compressed mode), and
+   the CSR (weighted SUM, MEAN) and CONCAT backward. Each result is then
+   compared with the plain path (``backend="xla"``) on the same inputs, and
+   every gradient with float64 sums. Then K3 at the same sorted COOs (fixed,
+   weighted CSR, CONCAT; full and compressed, launched twice) on
+   integer-valued grad_y, bit for bit against its plain version.
+6. K3 timed at the flagship batch (full mode into a zeroed buffer,
+   compressed mode, CSR) beside its plain version, ``F.embedding_bag``'s
+   backward and its bound; the transpose; a dense step and an AdaGrad step
+   end to end, each with a ``torch.profiler`` breakdown of device time.
 7. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -40,18 +58,30 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
 import time
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# The training path holds several 5 GB snapshots of a 10M x 256 bf16 table
+# beside 10 GB gradients; growable segments keep the allocator from
+# fragmenting the card's memory.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import cuembed_tpu_torch as tce
-from cuembed_tpu_torch.ops import _build, cuda_forward, dispatch
+from cuembed_tpu_torch import train
+from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward, dispatch
+from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
+from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_compressed_torch as plain_bwd_c
+from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_torch as plain_bwd
 from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
+from cuembed_tpu_torch.ops.transforms import transpose, transpose_position_ordered
 from cuembed_tpu_torch.utils import benchmarking as bench
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
 
@@ -72,6 +102,21 @@ GRID_TYPES = [
 ]
 HBM_PEAK = "3.35 TB/s (H100 SXM data sheet)"
 COMPARE_ROWS = 8192  # batch rows per comparison chunk
+# (batch, hotness, num_categories, width) of the backward grid: the shapes
+# of tests/test_pallas_backward.py, widths 2, 36 and 514, a run longer than
+# three chunks (the last shape's first LONG_RUN positions share one index),
+# and an empty COO.
+BWD_SHAPES = [
+    (32, 8, 200, 128), (13, 5, 67, 256), (64, 3, 40, 128), (40, 6, 300, 2),
+    (40, 6, 300, 36), (17, 5, 90, 514), (64, 20, 500, 64), (4, 0, 50, 128),
+]
+LONG_RUN = 3 * cuda_backward.CHUNK + 50
+BWD_PAD = 7  # sentinel entries past the live positions
+# Significand bits (with the implicit one) of each storage type.
+BITS = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}
+# Learning rates of the sparse steps: large enough that a bf16 table moves.
+ADAGRAD_LR, SGD_LR = 0.01, 1e-4
+DENSE_STEPS, ADAGRAD_STEPS = 3, 3
 
 
 def nvidia_smi_line() -> str:
@@ -81,13 +126,14 @@ def nvidia_smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def ulp(x: torch.Tensor) -> torch.Tensor:
-    """One ulp of each value of ``x`` in its own floating type, as fp32."""
-    info = torch.finfo(x.dtype)
-    bits = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}[x.dtype]
+def ulp(x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One ulp of each value of ``x`` in ``dtype`` (default: its own
+    floating type), as fp32."""
+    dtype = dtype or x.dtype
+    info = torch.finfo(dtype)
     _, exp = torch.frexp(x.float().abs())
     exp = exp.clamp(min=int(np.log2(info.tiny)) + 1)
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - bits)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - BITS[dtype])
 
 
 def within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -101,19 +147,67 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
 
 
+def check_sparse_step(name, got, want, old, touched):
+    """One sparse step of a bf16 table on the K3 path (``got``) against the
+    plain path (``want``), both from the same table, whose rows at
+    ``touched`` were ``old``. ``got`` and ``want`` are each the whole
+    table, or its rows at ``touched`` when it has as many rows.
+
+    Each path adds its fp32 update u to the table as ``old + bf16(u)``,
+    rounded to bf16. The two paths' u differ by the order of their fp32
+    sums (the plain path's ``index_add_`` uses atomics on the card), so
+    bf16(u) may differ by one ulp of u; where old and u nearly cancel, that
+    is many ulps of the result. Allowed at the touched rows: one ulp of
+    the larger result plus one bf16 ulp of twice the larger step
+    |new - old|. Every other row must be equal. Returns max |got - want|.
+    """
+    def rows(t):
+        return t if t.shape[0] == touched.numel() else t[touched]
+    g, w = rows(got), rows(want)
+    full = got.shape[0] == want.shape[0] != touched.numel()
+    larger = torch.maximum(g.abs(), w.abs())
+    step = torch.maximum((g.float() - old.float()).abs(), (w.float() - old.float()).abs())
+    diff = (g.float() - w.float()).abs()
+    tol = ulp(larger) + ulp(2 * step, torch.bfloat16)
+    over_ulp = int((diff > ulp(larger)).sum())
+    ratio = (diff / tol).max().item() if diff.numel() else 0.0
+    err = diff.max().item() if diff.numel() else 0.0
+    del g, w, larger, step, diff, tol
+    untouched_ok = True
+    if full:
+        untouched = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+        untouched[touched] = False
+        for r0 in range(0, got.shape[0], 1 << 20):
+            keep = untouched[r0:r0 + (1 << 20)]
+            untouched_ok = untouched_ok and torch.equal(got[r0:r0 + (1 << 20)][keep],
+                                                        want[r0:r0 + (1 << 20)][keep])
+    print(f"[{name}] max |table, K3 path - plain path| {err}; {over_ulp} elements more "
+          f"than one ulp of the result apart; worst difference over its bound "
+          f"{ratio:.3g} (at most 1 passes); untouched rows "
+          f"{'equal' if untouched_ok else 'CHANGED'}")
+    if ratio > 1 or not untouched_ok:
+        raise SystemExit(f"[{name}] the table disagrees with the plain path")
+    return err
+
+
+PLAIN_NAMES = ("embedding_forward_torch", "embedding_backward_torch",
+               "embedding_backward_compressed_torch")
+
+
 @contextlib.contextmanager
 def plain_path_forbidden(*modules):
-    """Make the plain version raise if the kernels' callers reach it."""
+    """Make the plain versions raise if the kernels' callers reach them."""
     def refuse(*args, **kwargs):
         raise AssertionError("the main path took the plain version")
-    saved = [m.embedding_forward_torch for m in modules]
-    for m in modules:
-        m.embedding_forward_torch = refuse
+    saved = [(m, n, getattr(m, n)) for m in modules for n in PLAIN_NAMES
+             if hasattr(m, n)]
+    for m, n, _ in saved:
+        setattr(m, n, refuse)
     try:
         yield
     finally:
-        for m, fn in zip(modules, saved):
-            m.embedding_forward_torch = fn
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def phase_build():
@@ -123,8 +217,16 @@ def phase_build():
     _build.load_library()
     print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
           f"{time.perf_counter() - t0:.1f} s")
+    log = _build.build_log_path().read_text()
+    m = re.search(r"build times: (.*)", log)
+    per_source = [float(t) for t in re.findall(
+        r"\.cu (\d+\.\d+) s", m.group(1))] if m else []
+    if len(per_source) != len(_build.SOURCES):
+        raise SystemExit("[build] the log holds no time for each source")
+    print(f"[build] one nvcc per source, started together: {m.group(1)}; one after "
+          f"the other the compiles would take about their sum, {sum(per_source):.1f} s")
     kernels, current = {}, None
-    for line in _build.build_log_path().read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = m.group(1)
@@ -133,8 +235,14 @@ def phase_build():
             kernels[current]["regs"] = int(m.group(1))
         elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             kernels[current]["spill"] = int(m.group(1)) + int(m.group(2))
-    for family in ("fixed_forward_kernel", "csr_forward_kernel"):
-        mine = {k: v for k, v in kernels.items() if family in k}
+    # The flagship instantiations: fp16 rows (forward) or fp32 grad_y rows
+    # (backward), int64 ids, 16-byte loads.
+    for family, flagship in (("fixed_forward_kernel", "I6__halfl"),
+                             ("csr_forward_kernel", "I6__halfl"),
+                             ("coo_backward_kernel", "Ifl"),
+                             ("coo_backward_fixup_kernel", "Ifl"),
+                             ("run_count_kernel", None), ("run_scan_kernel", None)):
+        mine = {k: v for k, v in kernels.items() if f"{len(family)}{family}" in k}
         if not mine:
             raise SystemExit(f"[build] ptxas reported no {family}")
         regs = [v["regs"] for v in mine.values()]
@@ -142,8 +250,7 @@ def phase_build():
         print(f"[build] {family}: {len(mine)} instantiations, registers "
               f"{min(regs)}..{max(regs)}, spill bytes {spills}")
         for name, v in mine.items():
-            # The flagship instantiations: fp16 rows, int64 ids, 16-byte loads.
-            if "I6__halfl" in name and "Li16E" in name:
+            if flagship is None or (flagship in name and "Li16E" in name):
                 print(f"[build]   {name}: {v['regs']} registers, {v['spill']} spill bytes")
 
 
@@ -227,6 +334,453 @@ def phase_grid():
     print("[grid] K1 equals a float64 numpy sum on a 9 x 11 integer problem")
 
 
+def float64_runs(gy, t_idx, t_sid, coeff, live, num_rows=None):
+    """The float64 sum of each distinct index's terms over the live prefix
+    of a sorted COO, the sum of the terms' magnitudes and their count:
+    ``(uniq, exact, mass, count)``. ``num_rows`` drops out-of-range indices
+    (full mode); without it every run counts (compressed mode)."""
+    idx, sid = t_idx[:live], t_sid[:live].long()
+    c = None if coeff is None else coeff[:live]
+    if num_rows is not None:
+        keep = (idx >= 0) & (idx < num_rows)
+        idx, sid = idx[keep], sid[keep]
+        c = None if c is None else c[keep]
+    uniq, inv = torch.unique(idx, return_inverse=True)
+    uniq = uniq.long()
+    exact = torch.zeros((uniq.numel(), gy.shape[1]), dtype=torch.float64, device=gy.device)
+    mass = torch.zeros_like(exact)
+    for p0 in range(0, idx.numel(), 1 << 20):
+        p1 = min(p0 + (1 << 20), idx.numel())
+        terms = gy.index_select(0, sid[p0:p1]).double()
+        if c is not None:
+            terms *= c[p0:p1].double()[:, None]
+        exact.index_add_(0, inv[p0:p1], terms)
+        mass.index_add_(0, inv[p0:p1], terms.abs())
+    count = torch.bincount(inv, minlength=uniq.numel()).double()[:, None]
+    return uniq, exact, mass, count
+
+
+def sum_error_ratio(got, exact, mass, count, sum_bits):
+    """max |got - exact| over its bound: a recursive sum of n terms (and one
+    product per term) with unit roundoff 2^-sum_bits, then one rounding to
+    ``got``'s type; at most 1 means within the bound."""
+    if got.numel() == 0:
+        return 0.0
+    tiny = torch.finfo(got.dtype).tiny
+    tol = ((count + 2) * (2.0**-sum_bits * mass + tiny)
+           + 2.0**-BITS[got.dtype] * exact.abs())
+    return ((got.double() - exact).abs() / tol).max().item()
+
+
+def check_full_grad(name, got, init, uniq, exact, mass, count, sum_bits):
+    """A full gradient against float64 sums: the touched rows within the
+    bound, every other row equal to its initial value (zero without one).
+    Returns the ratio of the worst error to its bound."""
+    base = None if init is None else init[uniq].double()
+    ratio = sum_error_ratio(
+        got[uniq], exact if base is None else exact + base,
+        mass if base is None else mass + base.abs(), count + (base is not None), sum_bits)
+    if init is None:
+        untouched_ok = int(torch.count_nonzero(got)) == int(torch.count_nonzero(got[uniq]))
+    else:
+        rest = got.clone()
+        rest[uniq] = init[uniq]
+        untouched_ok = torch.equal(rest, init)
+    if ratio > 1 or not untouched_ok:
+        raise SystemExit(f"[{name}] gradient off: error/bound {ratio}, untouched rows "
+                         f"{'ok' if untouched_ok else 'changed'}")
+    return ratio
+
+
+def backward_problem(gen, batch, hotness, V, width, dtype, index_dtype, weighted,
+                     integer, long_run):
+    """An index-sorted COO of a fixed-hotness batch with BWD_PAD sentinel
+    entries, grad_y rows, weights and an initial gradient. Integer-exact
+    data keeps every partial sum exact in fp32 and in the half types
+    (values in {-1, 0, 1}, seven in eight of them 0 for fp16/bf16, weights
+    in {0.5, 1}); otherwise normal reals and U(0, 1) weights."""
+    n = batch * hotness
+    idx = torch.randint(0, V, (n,), device="cuda", generator=gen)
+    idx[:long_run] = V // 2
+    sid = torch.arange(n, device="cuda") // max(hotness, 1)
+    order = torch.sort(idx, stable=True).indices
+    t_idx = torch.cat([idx[order], torch.full((BWD_PAD,), SENTINEL, device="cuda")])
+    t_sid = torch.cat([sid[order], torch.zeros(BWD_PAD, dtype=sid.dtype, device="cuda")])
+    t_idx, t_sid = t_idx.to(index_dtype), t_sid.to(torch.int32)
+    if integer:
+        vmax = 8 if dtype == torch.float32 else 1
+        gy = torch.randint(-vmax, vmax + 1, (batch, width), device="cuda", generator=gen)
+        init = torch.randint(-2, 3, (V, width), device="cuda", generator=gen)
+        if dtype != torch.float32:
+            gy *= torch.rand((batch, width), device="cuda", generator=gen) < 0.125
+        w = torch.tensor([0.5, 1.0], device="cuda")[
+            torch.randint(0, 2, t_idx.shape, device="cuda", generator=gen)]
+    else:
+        gy = torch.randn((batch, width), device="cuda", generator=gen)
+        init = torch.randn((V, width), device="cuda", generator=gen)
+        w = torch.rand(t_idx.shape, device="cuda", generator=gen)
+    return gy.to(dtype), t_idx, t_sid, w if weighted else None, init.to(dtype)
+
+
+def phase_backward_grid():
+    """K3 against its plain version over the backward grid, full and
+    compressed, with sentinel padding, an nnz prefix and an initial
+    gradient. Integer-exact data: bit for bit. Random reals: each within
+    its recursive-sum bound of a float64 sum (K3 sums in fp32, the plain
+    version in grad_y's type). Every case launches K3 twice and needs the
+    same bits both times."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases, failures = 0, []
+    worst = {"bitwise": 0.0, "k3 bound": 0.0, "plain bound": 0.0}
+    for batch, hotness, V, width in BWD_SHAPES:
+        long_run = LONG_RUN if batch * hotness > LONG_RUN else 0
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            for index_dtype in (torch.int32, torch.int64):
+                for weighted in (False, True):
+                    for integer in (True, False):
+                        gy, t_idx, t_sid, w, init = backward_problem(
+                            gen, batch, hotness, V, width, dtype, index_dtype, weighted,
+                            integer, long_run)
+                        n = batch * hotness
+                        variants = [("full", None, None), ("prefix", max(n - 5, 0), None),
+                                    ("init", n, init)]
+                        variants += [("compressed", None, "c"),
+                                     ("compressed prefix", max(n - 5, 0), "c")]
+                        for label, nnz, extra in variants:
+                            cases += 1
+                            compressed = extra == "c"
+                            start = None if compressed or extra is None else extra
+                            live = t_idx.shape[0] if nnz is None else nnz
+                            if compressed:
+                                runs = [cuda_backward.embedding_backward_cuda_compressed(
+                                    gy, t_idx, t_sid, w, nnz=nnz) for _ in range(2)]
+                                want = plain_bwd_c(gy, t_idx, t_sid, w, nnz=nnz)
+                                got, again = runs[0].rows, runs[1].rows
+                                ok = (torch.equal(got, again)
+                                      and int(runs[0].num_unique) == int(want.num_unique)
+                                      and torch.equal(runs[0].unique_indices,
+                                                      want.unique_indices))
+                                want = want.rows
+                            else:
+                                got, again = (cuda_backward.embedding_backward_cuda(
+                                    gy, V, t_idx, t_sid, w, nnz=nnz,
+                                    initial_grad=None if start is None else start.clone())
+                                    for _ in range(2))
+                                want = plain_bwd(gy, V, t_idx, t_sid, w, nnz=nnz,
+                                                 initial_grad=None if start is None
+                                                 else start.clone())
+                                ok = torch.equal(got, again)
+                            if integer:
+                                err = max_abs_err(got, want)
+                                worst["bitwise"] = max(worst["bitwise"], err)
+                                ok = ok and torch.equal(got, want)
+                            else:
+                                uniq, exact, mass, count = float64_runs(
+                                    gy, t_idx, t_sid, w, live, None if compressed else V)
+                                if compressed:
+                                    nu = uniq.numel()
+                                    k3 = sum_error_ratio(got[:nu], exact, mass, count, 24)
+                                    pl = sum_error_ratio(want[:nu], exact, mass, count,
+                                                         BITS[dtype])
+                                    ok = ok and not got[nu:].any()
+                                else:
+                                    try:
+                                        k3 = check_full_grad("grid", got, start, uniq, exact,
+                                                             mass, count, 24)
+                                        pl = check_full_grad("grid", want, start, uniq,
+                                                             exact, mass, count, BITS[dtype])
+                                    except SystemExit:
+                                        k3 = pl = float("inf")
+                                worst["k3 bound"] = max(worst["k3 bound"], k3)
+                                worst["plain bound"] = max(worst["plain bound"], pl)
+                                ok = ok and k3 <= 1 and pl <= 1
+                            torch.cuda.synchronize()
+                            if not ok:
+                                failures.append((batch, hotness, V, width, str(dtype),
+                                                 str(index_dtype), weighted, integer, label))
+    print(f"[backward grid] {cases} cases, each launched twice with the same bits: "
+          f"max |K3 - plain| {worst['bitwise']} on integer-exact data (bitwise); on "
+          f"random reals the worst error over its recursive-sum bound is "
+          f"{worst['k3 bound']:.3g} for K3 (fp32 sums) and {worst['plain bound']:.3g} for "
+          f"the plain version (sums in grad_y's type); at most 1 passes")
+    for f in failures[:20]:
+        print(f"[backward grid] MISMATCH {f}")
+    if failures:
+        raise SystemExit(f"[backward grid] {len(failures)} of {cases} cases disagree")
+    return worst["bitwise"]
+
+
+def flagship_exact(idx, flat, offsets, gen):
+    """K3 against its plain version at the main path's sorted COOs (the
+    fixed batch, the weighted CSR batch and CONCAT), full and compressed
+    mode, each launched twice. grad_y is integer-valued fp32 with |g| <= 8
+    and the CSR coefficients are 0.5 or 1, so every partial sum of a run is
+    a multiple of 0.5 below 2^22 and exact in fp32, whatever the order:
+    both must give the same bits, the fix-up of the runs that cross chunk
+    edges included. Returns max |K3 - plain| (0 when it passes)."""
+    kb, kc = cuda_backward.embedding_backward_cuda, cuda_backward.embedding_backward_cuda_compressed
+    nnz = int(offsets[-1])
+    w = torch.tensor([0.5, 1.0], device="cuda")[
+        torch.randint(0, 2, flat.shape, device="cuda", generator=gen)]
+    cases = (("fixed", (*fixed_coo(idx), None), BATCH, None),
+             ("csr weighted", csr_coo(flat, offsets, w, tce.CombineMode.SUM), BATCH, nnz),
+             ("concat", (*fixed_coo(idx, tce.CombineMode.CONCAT), None),
+              BATCH * HOTNESS, None))
+    err = 0.0
+    for name, (t_idx, t_sid, t_c), rows, n in cases:
+        live = t_idx.numel() if n is None else n
+        runs = torch.unique_consecutive(t_idx[:live], return_counts=True)[1]
+        longest = int(runs.max())
+        if longest * 8 >= 1 << 22:
+            raise SystemExit(f"[{name} exact] a run of {longest} could round")
+        gy = torch.randint(-8, 9, (rows, WIDTH), device="cuda", generator=gen).float()
+        got = kb(gy, NUM_ROWS, t_idx, t_sid, t_c, nnz=n)
+        same = torch.equal(got, kb(gy, NUM_ROWS, t_idx, t_sid, t_c, nnz=n))
+        want = plain_bwd(gy, NUM_ROWS, t_idx, t_sid, t_c, nnz=n)
+        full_err = max_abs_err(got, want)
+        full_ok = same and torch.equal(got, want)
+        del got, want
+        got = kc(gy, t_idx, t_sid, t_c, nnz=n)
+        again = kc(gy, t_idx, t_sid, t_c, nnz=n)
+        want = plain_bwd_c(gy, t_idx, t_sid, t_c, nnz=n)
+        comp_err = max_abs_err(got.rows, want.rows)
+        comp_ok = (torch.equal(got.rows, again.rows) and torch.equal(got.rows, want.rows)
+                   and torch.equal(got.unique_indices, want.unique_indices)
+                   and int(got.num_unique) == int(want.num_unique) == runs.numel())
+        del got, again, want, gy
+        torch.cuda.empty_cache()
+        print(f"[{name} exact] {live} sorted positions in {runs.numel()} runs, the "
+              f"longest {longest} ({-(-longest // cuda_backward.CHUNK)} chunks), "
+              f"{int((runs > cuda_backward.CHUNK).sum())} longer than a chunk; integer "
+              f"grad_y: max |K3 - plain| {full_err} (full), {comp_err} (compressed); "
+              f"two launches {'equal' if same else 'DIFFERENT'}")
+        if not (full_ok and comp_ok):
+            raise SystemExit(f"[{name} exact] K3 is not bit for bit the plain version")
+        err = max(err, full_err, comp_err)
+    return err
+
+
+def compact_grad(grad, touched):
+    """What the checks need of a [V, W] gradient: its rows at the touched
+    indices, and the number of its nonzero elements."""
+    return grad[touched], int(torch.count_nonzero(grad))
+
+
+def check_compact(name, compact, exact, mass, count, sum_bits):
+    """A compacted full gradient against float64 sums of its touched rows:
+    within the bound, and no nonzero element elsewhere. Returns the ratio of
+    the worst error to its bound."""
+    rows, nonzero = compact
+    ratio = sum_error_ratio(rows, exact, mass, count, sum_bits)
+    in_rows = int(torch.count_nonzero(rows))
+    if ratio > 1 or nonzero != in_rows:
+        raise SystemExit(f"[{name}] gradient off: error/bound {ratio}, nonzero elements "
+                         f"{nonzero} against {in_rows} in touched rows")
+    return ratio
+
+
+def fixed_coo(idx, mode=tce.CombineMode.SUM):
+    """The sorted COO the lookup's backward builds for a fixed batch."""
+    batch, hotness = idx.shape
+    pos = torch.arange(batch * hotness, dtype=torch.int32, device=idx.device)
+    sid = pos if mode == tce.CombineMode.CONCAT else pos // hotness
+    t_idx, t_sid, _ = transpose_position_ordered(sid, idx.reshape(-1))
+    return t_idx, t_sid
+
+
+def csr_coo(flat, offsets, weights, mode):
+    """The sorted COO (with coefficients) of a CSR batch, as the lookup's
+    backward builds it: padding sorts last as the sentinel."""
+    live = torch.arange(flat.numel(), device=flat.device) < offsets[-1]
+    idx = torch.where(live, flat, torch.full_like(flat, SENTINEL))
+    sid = tce.extract_row_ids_from_csr(offsets, flat).to(torch.int32)
+    coeff = live.float() if weights is None else weights * live
+    if mode == tce.CombineMode.MEAN:
+        hot = (offsets[1:] - offsets[:-1]).float()
+        coeff = coeff * torch.where(hot == 0, 0.0, 1.0 / hot.clamp(min=1.0))[sid.long()]
+    return transpose_position_ordered(sid, idx, coeff)
+
+
+def timed(fn):
+    """fn() and its host time in ms, to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dense_loss(out):
+    return (out.float() ** 2).sum() * 1e-9
+
+
+def sparse_loss(pooled):
+    return 0.5 * (pooled.float() ** 2).sum()
+
+
+def drive_training(bag, idx, flat, offsets, csr_w):
+    """The training path, counted: dense SGD steps through autograd,
+    row-wise AdaGrad and sparse SGD steps, and the CSR and CONCAT backward.
+    Keeps what the checks outside the counted region need."""
+    keep = {"dense_ms": [], "adagrad_ms": []}
+    table = bag.weight.data
+    touched = torch.unique(idx)
+    csr_touched = torch.unique(flat[:int(offsets[-1])])
+    # (a) Dense steps: K1, transpose, K3 full, torch.optim.SGD.
+    keep["w0"] = table.clone()
+    opt = torch.optim.SGD(bag.parameters(), lr=1e-6)
+    for step in range(DENSE_STEPS):
+        gys = []
+
+        def dense_step():
+            opt.zero_grad(set_to_none=True)
+            out = bag(idx)
+            out.register_hook(gys.append)
+            loss = dense_loss(out)
+            loss.backward()
+            opt.step()
+            return loss
+        loss, ms = timed(dense_step)
+        keep["dense_ms"].append(ms)
+        if not torch.isfinite(loss):
+            raise SystemExit(f"[dense step] loss {loss.item()} at step {step + 1}")
+        if step == 0:
+            keep["dense"] = (compact_grad(bag.weight.grad, touched), gys[0])
+    bag.weight.grad = None
+    del opt
+    torch.cuda.empty_cache()
+    # (b) Row-wise AdaGrad steps: K1 under no_grad, embedding_grad_y, K3
+    # compressed; then one sparse SGD step.
+    accum = train.rowwise_adagrad_init(NUM_ROWS, device="cuda")
+    for step in range(ADAGRAD_STEPS):
+        if step in (0, ADAGRAD_STEPS - 1):
+            keep[f"adagrad_in{step}"] = (table.clone(), accum.clone())
+
+        def adagrad_step():
+            with torch.no_grad():
+                pooled = bag(idx)
+            gy = train.embedding_grad_y(sparse_loss, pooled)
+            train.rowwise_adagrad_sparse_update(table, accum, idx, gy, lr=ADAGRAD_LR)
+        _, ms = timed(adagrad_step)
+        keep["adagrad_ms"].append(ms)
+        if step == 0:
+            keep["adagrad_out0"] = (table[touched], accum.clone())
+    keep["adagrad_out_last"] = (table.clone(), accum)
+    with torch.no_grad():
+        gy = train.embedding_grad_y(sparse_loss, bag(idx))
+    train.sgd_sparse_update(table, idx, gy, lr=SGD_LR)
+    keep["sgd_gy"] = gy
+    torch.cuda.empty_cache()
+    # (c) CSR backward, weighted SUM and MEAN: K2, transpose, K3 full, and
+    # the weights gradient.
+    for mode in (tce.CombineMode.SUM, tce.CombineMode.MEAN):
+        w = csr_w.clone().requires_grad_() if mode == tce.CombineMode.SUM else None
+        gys = []
+        out = tce.embedding_lookup_csr(bag.weight, flat, offsets, w, mode=mode)
+        out.register_hook(gys.append)
+        dense_loss(out).backward()
+        keep[f"csr_{mode.value}"] = (compact_grad(bag.weight.grad, csr_touched),
+                                     None if w is None else w.grad, gys[0])
+        bag.weight.grad = None
+        torch.cuda.empty_cache()
+    # (d) CONCAT backward: index_select forward, K3 full over one grad_y row
+    # per position.
+    gys = []
+    out = tce.embedding_lookup(bag.weight, idx, mode=tce.CombineMode.CONCAT)
+    out.register_hook(gys.append)
+    dense_loss(out).backward()
+    keep["concat"] = (compact_grad(bag.weight.grad, touched), gys[0])
+    bag.weight.grad = None
+    return keep
+
+
+def plain_grad(lookup, table, *args, weights=None, **kw):
+    """The table (and weights) gradient of dense_loss on the plain path."""
+    leaf = table.detach().clone().requires_grad_()
+    wl = None if weights is None else weights.detach().clone().requires_grad_()
+    dense_loss(lookup(leaf, *args, wl, backend="xla", **kw)).backward()
+    return leaf.grad, None if wl is None else wl.grad
+
+
+def check_grad(name, got, gy, coo, live, plain_args, touched, plain_kw=None):
+    """A gradient of the K3 path, and the plain path's on the same inputs,
+    each against float64 sums. Returns max |K3 path - plain path|."""
+    t_idx, t_sid, t_c = coo
+    _, exact, mass, count = float64_runs(gy.float(), t_idx, t_sid, t_c, live, NUM_ROWS)
+    want, want_w = plain_grad(*plain_args, **(plain_kw or {}))
+    want = compact_grad(want, touched)
+    k3 = check_compact(name, got, exact, mass, count, 24)
+    pl = check_compact(f"{name}, plain path", want, exact, mass, count, 24)
+    err = max_abs_err(got[0], want[0])
+    print(f"[{name}] gradient error/bound {k3:.3g} (K3 path), {pl:.3g} (plain path; "
+          f"both sum in fp32, bound at 1); max |K3 path - plain path| {err}")
+    return err, want_w
+
+
+def check_training(bag, idx, flat, offsets, csr_w, keep):
+    """Every result of the training path against the plain path
+    (``backend="xla"``) on the same inputs, the gradients also against
+    float64 sums. Returns max |K3 path - plain path| over the gradients."""
+    touched = torch.unique(idx)
+    nnz = int(offsets[-1])
+    csr_touched = torch.unique(flat[:nnz])
+    # (a) The first dense step's gradient.
+    got, gy = keep.pop("dense")
+    t_idx, t_sid = fixed_coo(idx)
+    err, _ = check_grad("dense step 1", got, gy, (t_idx, t_sid, None), t_idx.numel(),
+                        (tce.embedding_lookup, keep.pop("w0"), idx), touched)
+
+    # (b) AdaGrad after its first and its last step, and the sparse SGD
+    # step, each from the same inputs on the plain path (the tables as
+    # check_sparse_step says). The accumulator, mean(G^2) of the same fp32
+    # sums taken in two orders: 1e-4 relative.
+    for step in (0, ADAGRAD_STEPS - 1):
+        tbl, acc = keep.pop(f"adagrad_in{step}")
+        old = tbl[touched]
+        with torch.no_grad():
+            pooled = tce.embedding_lookup(tbl, idx, backend="xla")
+        gy = train.embedding_grad_y(sparse_loss, pooled)
+        train.rowwise_adagrad_sparse_update(tbl, acc, idx, gy, lr=ADAGRAD_LR,
+                                            backend="xla")
+        got_table, got_accum = keep.pop("adagrad_out0" if step == 0 else "adagrad_out_last")
+        check_sparse_step(f"adagrad step {step + 1}", got_table, tbl, old, touched)
+        rel_a = ((got_accum - acc).abs() / acc.abs().clamp(min=1e-30)).max().item()
+        print(f"[adagrad step {step + 1}] accumulator max relative difference "
+              f"{rel_a:.3g} (1e-4 allowed); {int(acc.count_nonzero())} rows have state")
+        if not torch.allclose(got_accum, acc, rtol=1e-4, atol=1e-12):
+            raise SystemExit(f"[adagrad] step {step + 1}: the accumulator disagrees")
+        if step == ADAGRAD_STEPS - 1:
+            # The sparse SGD step, from the K3 path's table after AdaGrad.
+            old = got_table[touched]
+            train.sgd_sparse_update(got_table, idx, keep.pop("sgd_gy"), lr=SGD_LR,
+                                    backend="xla")
+            check_sparse_step("sgd sparse", bag.weight.data, got_table, old, touched)
+        del tbl, acc, got_table, old
+
+    # (c) CSR, weighted SUM and MEAN; the weights gradient is the same code
+    # on the same inputs on both paths, so it must be bit for bit the same.
+    for mode in (tce.CombineMode.SUM, tce.CombineMode.MEAN):
+        got, wgrad, gy = keep.pop(f"csr_{mode.value}")
+        w = csr_w if mode == tce.CombineMode.SUM else None
+        e, want_w = check_grad(
+            f"csr {mode.value}", got, gy, csr_coo(flat, offsets, w, mode), nnz,
+            (tce.embedding_lookup_csr, bag.weight, flat, offsets), csr_touched,
+            {"weights": w, "mode": mode})
+        err = max(err, e)
+        if w is not None:
+            if not torch.equal(wgrad, want_w):
+                raise SystemExit("[csr sum] the weights gradient differs from the plain path")
+            print("[csr sum] weights gradient equal to the plain path's")
+
+    # (d) CONCAT.
+    got, gy = keep.pop("concat")
+    t_idx, t_sid = fixed_coo(idx, tce.CombineMode.CONCAT)
+    e, _ = check_grad("concat", got, gy, (t_idx, t_sid, None), t_idx.numel(),
+                      (tce.embedding_lookup, bag.weight, idx), touched,
+                      {"mode": tce.CombineMode.CONCAT})
+    return max(err, e)
+
+
 def compare_in_chunks(out, table, idx, offsets=None, weights=None, **kw):
     """Max |out - plain| over the batch, in chunks of batch rows; fails
     unless within tolerance."""
@@ -273,6 +827,156 @@ def serve(bag, batches, name):
     return out, median
 
 
+def backward_timings(table, idx, flat, offsets, csr_w, gy):
+    """K3 at the flagship shapes, timed beside its plain version,
+    ``F.embedding_bag``'s backward and its bound; the transpose; and K3's
+    compressed result held to float64 sums at that size."""
+    V, nnz = NUM_ROWS, int(offsets[-1])
+    kb, kc = cuda_backward.embedding_backward_cuda, cuda_backward.embedding_backward_cuda_compressed
+    t_idx, t_sid = fixed_coo(idx)
+    live = t_idx.numel()
+    gy32 = gy.float()
+    nu = int(torch.unique(idx).numel())
+    # Full mode, into a zeroed buffer (initial_grad): the kernel's own work.
+    buf = torch.zeros((V, WIDTH), dtype=torch.float32, device="cuda")
+    bound = bench.backward_bound(gy_rows=BATCH, width=WIDTH, elem_bytes=4, live=live,
+                                 index_bytes=8, num_unique=nu, weighted=False,
+                                 compressed=False)
+    k = bench.cuda_time_ms(lambda: kb(gy32, V, t_idx, t_sid, initial_grad=buf))
+    p = bench.cuda_time_ms(lambda: plain_bwd(gy32, V, t_idx, t_sid, initial_grad=buf),
+                           warmup=1, iters=5)
+    zero = bench.cuda_time_ms(lambda: torch.zeros((V, WIDTH), device="cuda"), iters=5)
+    del buf
+    # The library yardstick: F.embedding_bag's backward on an fp32 table
+    # that requires grad, for the same dense gradient (it allocates and
+    # zeroes its own output).
+    tbl32 = table.float().requires_grad_()
+    out = F.embedding_bag(idx, tbl32, mode="sum")
+    lib = bench.cuda_time_ms(
+        lambda: torch.autograd.grad(out, tbl32, gy32, retain_graph=True), iters=10)
+    del tbl32, out
+    app = bench.backward_app_bytes(nnz=live, batch=BATCH, width=WIDTH, num_unique=nu,
+                                   elem_bytes=4, index_bytes=8)
+    print(f"[K3 full] fixed flagship (fp32 grad_y [{BATCH}, {WIDTH}], {live} sorted "
+          f"positions, {nu} distinct rows): kernel {k:.4f} ms into a zeroed buffer, "
+          f"{app / k / 1e6:.1f} app GB/s; plain {p:.4f} ms; F.embedding_bag backward "
+          f"{lib:.4f} ms (with its own zeroed output); zeroing the [{V}, {WIDTH}] fp32 "
+          f"gradient alone {zero:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}: {bound['bytes']} bytes at {HBM_PEAK}), kernel at "
+          f"{bound['bound_ms'] / k:.1%} of the bound")
+    k3 = {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": bound["bound_ms"],
+          "bound_by": bound["bound_by"]}
+
+    # Full mode as the dense step runs it: the bf16 grad_y as it is, into a
+    # zeroed bf16 gradient.
+    buf = torch.zeros((V, WIDTH), dtype=gy.dtype, device="cuda")
+    khalf = bench.cuda_time_ms(lambda: kb(gy, V, t_idx, t_sid, initial_grad=buf))
+    del buf
+    hbound = bench.backward_bound(gy_rows=BATCH, width=WIDTH, elem_bytes=gy.element_size(),
+                                  live=live, index_bytes=8, num_unique=nu, weighted=False,
+                                  compressed=False)
+    print(f"[K3 full] the dense step's call ({gy.dtype} grad_y and gradient): kernel "
+          f"{khalf:.4f} ms; bound {hbound['bound_ms']:.4f} ms ({hbound['bytes']} bytes), "
+          f"kernel at {hbound['bound_ms'] / khalf:.1%} of the bound")
+
+    # Compressed mode, checked at this size against float64 sums.
+    got = kc(gy32, t_idx, t_sid)
+    _, exact, mass, count = float64_runs(gy32, t_idx, t_sid, None, live)
+    ratio = sum_error_ratio(got.rows[:nu], exact, mass, count, 24)
+    if int(got.num_unique) != nu or ratio > 1 or got.rows[nu:].any():
+        raise SystemExit(f"[K3 compressed] off at the flagship size: num_unique "
+                         f"{int(got.num_unique)} of {nu}, error/bound {ratio}")
+    del got, exact, mass, count
+    cbound = bench.backward_bound(gy_rows=BATCH, width=WIDTH, elem_bytes=4, live=live,
+                                  index_bytes=8, num_unique=nu, weighted=False,
+                                  compressed=True)
+    kcm = bench.cuda_time_ms(lambda: kc(gy32, t_idx, t_sid), iters=10)
+    pcm = bench.cuda_time_ms(lambda: plain_bwd_c(gy32, t_idx, t_sid), warmup=1, iters=3)
+    pad = live * WIDTH * 4 / bench.H100_HBM_BYTES_PER_S * 1e3
+    print(f"[K3 compressed] fixed flagship: kernel {kcm:.4f} ms (with the zeroed "
+          f"[{live}, {WIDTH}] fp32 output it fills); plain {pcm:.4f} ms; bound "
+          f"{cbound['bound_ms']:.4f} ms for the touched rows ({cbound['bytes']} bytes), "
+          f"{cbound['bound_ms'] + pad:.4f} ms with the zero padding; error/bound "
+          f"against float64 sums {ratio:.3g}")
+
+    # CSR, weighted: K3 full over the live prefix.
+    c_idx, c_sid, c_w = csr_coo(flat, offsets, csr_w, tce.CombineMode.SUM)
+    gyc = torch.randn((BATCH, WIDTH), device="cuda")
+    cnu = int(torch.unique(flat[:nnz]).numel())
+    buf = torch.zeros((V, WIDTH), dtype=torch.float32, device="cuda")
+    kcsr = bench.cuda_time_ms(lambda: kb(gyc, V, c_idx, c_sid, c_w, nnz=nnz,
+                                         initial_grad=buf))
+    del buf
+    csr_bound = bench.backward_bound(gy_rows=BATCH, width=WIDTH, elem_bytes=4, live=nnz,
+                                     index_bytes=8, num_unique=cnu, weighted=True,
+                                     compressed=False)
+    print(f"[K3 full] CSR weighted flagship (nnz {nnz}, {cnu} distinct rows): kernel "
+          f"{kcsr:.4f} ms; bound {csr_bound['bound_ms']:.4f} ms "
+          f"({csr_bound['bytes']} bytes), kernel at {csr_bound['bound_ms'] / kcsr:.1%}")
+
+    # The transpose: torch.sort by index (stable), and the general two-key
+    # sort; bound: the index and sample-id streams read and written once.
+    sid = torch.arange(live, dtype=torch.int32, device="cuda") // HOTNESS
+    flat_idx = idx.reshape(-1)
+    tp = bench.cuda_time_ms(lambda: transpose_position_ordered(sid, flat_idx))
+    tg = bench.cuda_time_ms(lambda: transpose(sid, flat_idx))
+    tbytes = live * (8 + 4) * 2
+    print(f"[transpose] {live} positions: one stable sort by index {tp:.4f} ms "
+          f"(the lookup's path), two-key {tg:.4f} ms; bound "
+          f"{tbytes / bench.H100_HBM_BYTES_PER_S * 1e3:.4f} ms ({tbytes} bytes); "
+          f"reference app bytes {bench.transpose_app_bytes(nnz=live, index_bytes=8)}")
+    return k3
+
+
+def device_breakdown(label, fn, top=8):
+    """One call of fn under torch.profiler: device time by kernel (the top
+    ones), their sum against the host time of the call (the device's idle
+    share), printed on one line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, host_ms = timed(fn)
+    # Kernels and memsets; not the annotations of regions ("...#..."), whose
+    # device time is that of the kernels inside them.
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+               and "#" not in e.key]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    parts = "; ".join(f"{name[:60]} x{n} {ms:.4f}" for name, ms, n in kernels[:top])
+    print(f"[{label} profile] host {host_ms:.4f} ms, device busy {busy:.4f} ms "
+          f"(idle {1 - busy / host_ms:.1%}); top kernels (ms): {parts}")
+
+
+def step_timings(bag, idx, steps=5):
+    """Host ms of a dense step (autograd + torch.optim.SGD) and of a
+    row-wise AdaGrad step, each to a synchronize, after two warm-up steps;
+    medians of ``steps``."""
+    opt = torch.optim.SGD(bag.parameters(), lr=1e-6)
+    accum = train.rowwise_adagrad_init(NUM_ROWS, device="cuda")
+    table = bag.weight.data
+
+    def dense_step():
+        opt.zero_grad(set_to_none=True)
+        dense_loss(bag(idx)).backward()
+        opt.step()
+
+    def adagrad_step():
+        with torch.no_grad():
+            pooled = bag(idx)
+        gy = train.embedding_grad_y(sparse_loss, pooled)
+        train.rowwise_adagrad_sparse_update(table, accum, idx, gy, lr=ADAGRAD_LR)
+    out = {}
+    for name, fn in (("dense step", dense_step), ("adagrad step", adagrad_step)):
+        times = [timed(fn)[1] for _ in range(steps + 2)][2:]
+        out[name] = statistics.median(times)
+        print(f"[{name}] host ms {[round(t, 4) for t in times]}, median {out[name]:.4f}")
+        device_breakdown(name, fn)
+    bag.weight.grad = None
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -291,8 +995,9 @@ def main():
     # 2. The build.
     phase_build()
 
-    # 3. Parity grid.
+    # 3. Parity grids: K1 and K2, then K3.
     phase_grid()
+    phase_backward_grid()
 
     # Inputs of the main path, made before the counts are reset.
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -324,7 +1029,7 @@ def main():
           f"host in {time.perf_counter() - t0:.1f} s; CSR nnz {nnz} of capacity "
           f"{BATCH * HOTNESS}")
 
-    # 4-6. The main path, counted.
+    # 4. The serving path, counted.
     csr_requests = [("sum_w", False), ("sum_w", True), ("mean", False), ("mean", True)]
     k1, k2 = cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr
     k1.launches = k2.launches = 0
@@ -411,16 +1116,54 @@ def main():
               f"{request_ms:.4f} ms request: the rest, {1 - dev / request_ms:.1%}, "
               f"is host time")
 
+    # Free the serving phase's tables for the training path.
+    del big, table, fixed_out, csr_out, big_out, big_batches, small, small_out
+    torch.cuda.empty_cache()
+
+    # 5. The training path (BASELINE.json config 4,
+    # benchmarks/train_benchmark.py:62): a 10M x 256 bf16 EmbeddingBag, the
+    # flagship fixed and CSR batches, every count set to 0 first, the plain
+    # versions forbidden.
+    tbag = tce.EmbeddingBag(NUM_ROWS, WIDTH, dtype=torch.bfloat16)
+    tbag.reset_parameters(generator=gen)
+    kb = cuda_backward.embedding_backward_cuda
+    kc = cuda_backward.embedding_backward_cuda_compressed
+    k1.launches = k2.launches = kb.launches = kc.launches = 0
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        keep = drive_training(tbag, idx, flat, offsets, csr_w)
+    train_launches = {"K1": k1.launches, "K2": k2.launches, "K3 full": kb.launches,
+                      "K3 compressed": kc.launches}
+    print(f"[training path] launches: {train_launches}")
+    if not all(train_launches.values()):
+        raise SystemExit("[training path] a kernel of the path never launched")
+    dense_gy = keep["dense"][1]
+    print(f"[training path] {DENSE_STEPS} dense steps (autograd + torch.optim.SGD; the "
+          f"first ones include one-time set-up), host ms {[round(t, 4) for t in keep['dense_ms']]}, median "
+          f"{statistics.median(keep['dense_ms']):.4f}; {ADAGRAD_STEPS} row-wise AdaGrad "
+          f"steps, host ms {[round(t, 4) for t in keep['adagrad_ms']]}, median "
+          f"{statistics.median(keep['adagrad_ms']):.4f}")
+    errs["K3"] = check_training(tbag, idx, flat, offsets, csr_w, keep)
+    del keep
+    torch.cuda.empty_cache()
+    errs["K3"] = max(errs["K3"], flagship_exact(idx, flat, offsets, gen))
+    # 6. K3, the transpose and the steps, timed.
+    k3_t = backward_timings(tbag.weight.detach(), idx, flat, offsets, csr_w, dense_gy)
+    step_timings(tbag, idx)
+
     kernels = []
-    for name, line, t in (
-        ("K1 fixed_forward_kernel", 55, fixed_t),
-        ("K2 csr_forward_kernel", 274, csr_t),
+    for name, source, replaces, t, n in (
+        ("K1 fixed_forward_kernel", "forward.cu", "pallas_forward.py:55", fixed_t,
+         launches["K1"] + train_launches["K1"]),
+        ("K2 csr_forward_kernel", "forward.cu", "pallas_forward.py:274", csr_t,
+         launches["K2"] + train_launches["K2"]),
+        ("K3 coo_backward_kernel", "backward.cu", "pallas_backward.py:58", k3_t,
+         train_launches["K3 full"] + train_launches["K3 compressed"]),
     ):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "cuembed_tpu_torch/csrc/forward.cu",
-            "replaces": f"cuembed_tpu/ops/pallas_forward.py:{line}",
-            "launches": launches[name[:2]], "max_abs_err": errs[name[:2]],
+            "source": f"cuembed_tpu_torch/csrc/{source}",
+            "replaces": f"cuembed_tpu/ops/{replaces}",
+            "launches": n, "max_abs_err": errs[name[:2]],
             **t, "card": kind, "power_limit": power_limit,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

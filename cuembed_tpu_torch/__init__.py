@@ -1,28 +1,48 @@
 """cuembed_tpu_torch — the PyTorch/CUDA port of cuembed_tpu.
 
-An embedding-bag lookup library for NVIDIA Hopper: forward lookup over
-fixed-hotness ``[batch, hotness]`` or CSR indices, with SUM, MEAN, weighted
-SUM and CONCAT combine, fp32/bf16/fp16 tables and an fp32-accumulation
-policy. The fixed-hotness and CSR lookups run on two hand-written CUDA
-kernels (``csrc/forward.cu``) for CUDA tensors and on a plain PyTorch
-version for CPU tensors. This package imports neither JAX nor
+An embedding-bag lookup library for NVIDIA Hopper: a differentiable lookup
+over fixed-hotness ``[batch, hotness]`` or CSR indices, with SUM, MEAN,
+weighted SUM and CONCAT combine, fp32/bf16/fp16 tables and an
+fp32-accumulation policy, and sparse optimizers (``train``). The
+fixed-hotness and CSR lookups run on two hand-written CUDA kernels
+(``csrc/forward.cu``), and the backward, a sort by index and a sum of each
+index's run, on a third (``csrc/backward.cu``), for CUDA tensors; CPU
+tensors take a plain PyTorch version. This package imports neither JAX nor
 ``cuembed_tpu``; the JAX package is the reference it is tested against.
-
-This slice is forward only: the backward (sorted-COO kernel, transpose)
-comes next.
 """
 
 from cuembed_tpu_torch.models.embedding_bag import EmbeddingBag
 from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
+from cuembed_tpu_torch.ops.cuda_backward import (
+    embedding_backward_cuda,
+    embedding_backward_cuda_compressed,
+)
 from cuembed_tpu_torch.ops.cuda_forward import (
     embedding_forward_cuda,
     embedding_forward_cuda_csr,
 )
-from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch
+from cuembed_tpu_torch.ops.lookup_torch import (
+    CompressedGrad,
+    embedding_backward_compressed_torch,
+    embedding_backward_torch,
+    embedding_forward_torch,
+)
 from cuembed_tpu_torch.ops.transforms import (
+    compact_sparse_indices,
+    compute_compressed_grad_indices,
     extract_row_ids_for_concat,
     extract_row_ids_from_csr,
     extract_row_ids_from_fixed,
+    transpose,
+    transpose_masked_compact,
+)
+from cuembed_tpu_torch.train import (
+    adam_init,
+    adam_sparse_update,
+    embedding_grad_y,
+    rowwise_adagrad_init,
+    rowwise_adagrad_sparse_update,
+    sgd_sparse_update,
 )
 from cuembed_tpu_torch.types import (
     STORAGE_DTYPES,
@@ -48,6 +68,21 @@ __all__ = [
     "embedding_forward_torch",
     "embedding_forward_cuda",
     "embedding_forward_cuda_csr",
+    "CompressedGrad",
+    "embedding_backward_torch",
+    "embedding_backward_compressed_torch",
+    "embedding_backward_cuda",
+    "embedding_backward_cuda_compressed",
+    "transpose",
+    "transpose_masked_compact",
+    "compute_compressed_grad_indices",
+    "compact_sparse_indices",
+    "embedding_grad_y",
+    "sgd_sparse_update",
+    "rowwise_adagrad_init",
+    "rowwise_adagrad_sparse_update",
+    "adam_init",
+    "adam_sparse_update",
     "extract_row_ids_from_fixed",
     "extract_row_ids_from_csr",
     "extract_row_ids_for_concat",

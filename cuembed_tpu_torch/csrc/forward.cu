@@ -26,44 +26,16 @@
 // fused multiply-add), and under low-precision math every result is rounded to
 // the storage type, as a storage-dtype sum in PyTorch or JAX rounds each add.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 #include <cassert>
 #include <cstdint>
-#include <cstring>
 #include <type_traits>
 
 namespace cuembed {
 
-constexpr int kThreads = 256;  // threads per block
 constexpr int kUnroll = 8;     // row loads in flight per thread
 constexpr int kTile = 2048;    // (index, weight) pairs staged per K1 block
-
-__host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-__host__ __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Round to the accumulation type: identity for fp32 accumulation, a round
 // trip through the storage type under low-precision math. fp32 holds every
@@ -77,50 +49,6 @@ __device__ __forceinline__ float acc_round(float x) {
     return x;
   }
 }
-
-template <int BYTES>
-struct RawVec;
-template <>
-struct RawVec<16> {
-  using type = uint4;
-};
-template <>
-struct RawVec<8> {
-  using type = uint2;
-};
-template <>
-struct RawVec<4> {
-  using type = unsigned int;
-};
-template <>
-struct RawVec<2> {
-  using type = unsigned short;
-};
-
-// BYTES of a row, as one load: N elements of T.
-template <typename T, int BYTES>
-struct Vec {
-  static constexpr int N = BYTES / static_cast<int>(sizeof(T));
-  using Raw = typename RawVec<BYTES>::type;
-
-  __device__ __forceinline__ static Raw load(const T* p) {
-    return __ldg(reinterpret_cast<const Raw*>(p));
-  }
-  __device__ __forceinline__ static void unpack(const Raw& r, float (&v)[N]) {
-    T e[N];
-    memcpy(e, &r, BYTES);
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = to_float(e[i]);
-  }
-  __device__ __forceinline__ static void store(T* p, const float (&v)[N]) {
-    T e[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) e[i] = from_float<T>(v[i]);
-    Raw r;
-    memcpy(&r, e, BYTES);
-    *reinterpret_cast<Raw*>(p) = r;
-  }
-};
 
 // acc += w * row, in the order and rounding of the plain version.
 template <typename T, bool HAS_W, bool LPM, int N>
@@ -285,25 +213,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     V::store(out + sample * width + col * N, acc);
   }
-}
-
-// Block shape for rows of `nvec` vectors: up to kThreads lanes across the
-// row, and as many samples as fill kThreads threads.
-inline dim3 block_shape(int64_t nvec) {
-  int tx = 1;
-  if (nvec >= 32) {
-    tx = static_cast<int>(imin((nvec + 31) / 32 * 32, kThreads));
-  } else {
-    while (tx < nvec) tx *= 2;
-  }
-  return dim3(tx, kThreads / tx);
-}
-
-inline cudaError_t grid_of(int64_t batch, const dim3& block, dim3* grid) {
-  const int64_t blocks = (batch + block.y - 1) / block.y;
-  if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  *grid = dim3(static_cast<unsigned>(blocks));
-  return cudaSuccess;
 }
 
 struct FixedArgs {

@@ -5,7 +5,9 @@ The table is a ``[num_categories, width]`` parameter at its logical width:
 the TPU package's lane padding (``layout="padded"``) exists only for the
 TPU's 128-lane tile, so ``"padded"`` and ``"raw"`` store the same thing
 here. ``import_table`` / ``from_numpy`` carry a table over from the JAX
-package (as a numpy array), ``export_table`` carries it back.
+package (as a numpy array), ``export_table`` carries it back. The forward is
+differentiable: ``loss.backward()`` fills ``weight.grad`` through the
+sorted-COO backward, and any ``torch.optim`` optimizer steps the table.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Build and load the forward kernels' shared library.
+"""Build and load the kernels' shared library.
 
-``csrc/forward.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-the first CUDA use, into ``cuembed_tpu_torch/_build/``, and the library's
-name carries a hash of the sources and flags, so a stale library is never
-loaded. A failed build raises with nvcc's output.
+``csrc/forward.cu`` (K1, K2) and ``csrc/backward.cu`` (K3) are compiled by
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
+then linked into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs at the first CUDA use, into
+``cuembed_tpu_torch/_build/``, and the library's name carries a hash of the
+sources, the shared header and the flags, so a stale library is never
+loaded. A failed build raises with nvcc's output. The log beside the
+library ends with each ``nvcc``'s wall time and the build's.
 """
 
 from __future__ import annotations
@@ -15,15 +18,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("forward.cu",)
+SOURCES = ("forward.cu", "backward.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -46,9 +53,9 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources is built."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((SOURCE_DIR / name).read_bytes())
-    return BUILD_DIR / f"libcuembed_forward_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libcuembed_{digest.hexdigest()[:16]}.so"
 
 
 def build_log_path() -> Path:
@@ -57,25 +64,45 @@ def build_log_path() -> Path:
     return library_path().with_suffix(".log")
 
 
+def _run(cmd):
+    """Run one command; return its output and its wall time in seconds, or
+    raise with its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stdout}"
+        )
+    return proc.stdout, seconds
+
+
 def build() -> Path:
     """Compile the library unless it is already built; return its path."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(SOURCE_DIR / name) for name in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objects = [Path(tmpdir) / f"{Path(name).stem}.o" for name in SOURCES]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            compiled = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(SOURCE_DIR / name)]
+                for name, obj in zip(SOURCES, objects)
+            ]))
+        tmp = Path(tmpdir) / path.name
+        linked, link_s = _run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)])
+        wall = time.perf_counter() - t0
+        times = ", ".join(f"{name} {s:.1f} s" for name, (_, s) in zip(SOURCES, compiled))
+        build_log_path().write_text(
+            "".join(out for out, _ in compiled) + linked
+            + f"build times: {times}, link {link_s:.1f} s, wall {wall:.1f} s\n"
         )
-    build_log_path().write_text(proc.stdout + proc.stderr)
-    # Atomic: concurrent builds each rename a complete library into place.
-    os.replace(tmp, path)
+        # Atomic: concurrent builds each rename a complete library into place.
+        os.replace(tmp, path)
     return path
 
 
@@ -100,4 +127,13 @@ def load_library() -> ctypes.CDLL:
         ptr,  # stream
     ]
     lib.cuembed_csr_forward.restype = i32
+    lib.cuembed_coo_backward.argtypes = [
+        ptr, ptr, ptr, ptr,  # grad_y, t_idx, t_sid, coeff
+        ptr, ptr, ptr, ptr,  # out, uniq, head, tail
+        ptr, ptr, ptr,  # ranks, tail_rank, num_unique
+        i64, i64, i64, i64, i64,  # num_rows, gy_rows, live, width, chunk
+        i32, i32, i32, i32,  # dtype, index_bytes, vec_bytes, compressed
+        ptr,  # stream
+    ]
+    lib.cuembed_coo_backward.restype = i32
     return lib

@@ -1,9 +1,13 @@
-"""The user-facing embedding-lookup API, the counterpart of the forward of
+"""The user-facing differentiable embedding-lookup API, the counterpart of
 ``cuembed_tpu/ops/api.py``.
 
-Same signatures as the JAX package. In this slice the lookup is forward
-only: a table (or weights) that requires grad, with grad mode on, raises
-rather than return an output that silently has no gradient.
+Same signatures as the JAX package. The lookup is a
+``torch.autograd.Function`` (the JAX ``custom_vjp``): its forward saves only
+``(table, indices, offsets, weights)``, and its backward flattens the lookup
+to a COO, sorts it by index (``transforms.transpose``) and sums each index's
+run on K3 (``dispatch.backward``), deterministically and without atomics.
+Gradients flow to the table and to the per-lookup weights; indices and
+offsets have none.
 """
 
 from __future__ import annotations
@@ -11,7 +15,12 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.ops import dispatch
-from cuembed_tpu_torch.types import CombineMode, check_index_dtype
+from cuembed_tpu_torch.ops.lookup_torch import SENTINEL, rounded_reciprocal
+from cuembed_tpu_torch.ops.transforms import (
+    extract_row_ids_from_csr,
+    transpose_position_ordered,
+)
+from cuembed_tpu_torch.types import CombineMode, accumulation_dtype, check_index_dtype
 
 
 def embedding_lookup(
@@ -94,24 +103,134 @@ def _validate(table, indices, offsets, weights, mode):
             raise ValueError("fixed-hotness indices must be [batch, hotness]")
     if table.dim() != 2:
         raise ValueError("table must be [num_categories, width]")
-    if torch.is_grad_enabled() and (
-        table.requires_grad or (weights is not None and weights.requires_grad)
-    ):
-        raise NotImplementedError(
-            "the lookup is forward only: backward lands with the K3 slice; "
-            "call it under torch.no_grad() or on tensors that need no grad"
-        )
 
 
 def _lookup(table, indices, offsets, weights, mode, low_precision_math,
             backend, tiered_cfg):
-    return dispatch.forward(
-        table.contiguous(),
-        indices.contiguous(),
-        None if offsets is None else offsets.contiguous(),
-        None if weights is None else weights.to(torch.float32).contiguous(),
-        mode=mode,
-        low_precision_math=low_precision_math,
-        backend=backend,
-        tiered_cfg=tiered_cfg,
-    )
+    return _Lookup.apply(table, indices, offsets, weights,
+                         (mode, low_precision_math, backend, tiered_cfg))
+
+
+class _Lookup(torch.autograd.Function):
+    """The lookup with its COO backward (``api.py::_lookup_fwd/_lookup_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, offsets, weights, cfg):
+        mode, low_precision_math, backend, tiered_cfg = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(table, indices, offsets, weights)
+        return dispatch.forward(
+            table.contiguous(),
+            indices.contiguous(),
+            None if offsets is None else offsets.contiguous(),
+            None if weights is None else weights.to(torch.float32).contiguous(),
+            mode=mode,
+            low_precision_math=low_precision_math,
+            backend=backend,
+            tiered_cfg=tiered_cfg,
+        )
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        table, indices, offsets, weights = ctx.saved_tensors
+        grad_table, grad_weights = _lookup_bwd(
+            ctx.cfg, table, indices, offsets, weights, grad_y.contiguous(),
+            need_table=ctx.needs_input_grad[0], need_weights=ctx.needs_input_grad[3])
+        return grad_table, None, None, grad_weights, None
+
+
+# Positions per slice of the weights gradient, which gathers a [n, width]
+# block of table rows and of grad_y rows.
+_WEIGHTS_GRAD_SLICE = 1 << 20
+
+
+def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=True,
+                need_weights=True):
+    """Table and weights gradients: flatten to a COO, sort it by index, sum
+    the runs (``dispatch.backward``), and dot each looked-up row with its
+    ``grad_y`` row for the weights."""
+    mode, low_precision_math, backend, _ = cfg
+    num_categories, width = table.shape
+    if num_categories >= 2**31:
+        raise NotImplementedError(
+            "backward for tables with >= 2**31 rows is unsupported: the sparse "
+            "COO path keeps the int32-max sentinel; use forward-only lookups"
+        )
+    # The tiered branch (api.py:239-266) is unreachable: dispatch.forward
+    # raises for tiered_cfg and the TPU engines (ROADMAP P7).
+    acc_dt = accumulation_dtype(table.dtype, low_precision_math)
+    device = table.device
+
+    # --- Flatten to COO: (flat_idx, sample_ids, coeff) ---------------------
+    if offsets is None:
+        batch, hotness = indices.shape
+        nnz_cap = batch * hotness
+        flat_idx = indices.reshape(-1)
+        pos = torch.arange(nnz_cap, dtype=torch.int32, device=device)
+        if mode == CombineMode.CONCAT:
+            sample_ids = pos  # one grad_y row per position
+            grad_rows_in = grad_y.reshape(nnz_cap, width)
+        else:
+            sample_ids = pos // hotness
+            grad_rows_in = grad_y
+        nnz = None
+        live = None
+    else:
+        nnz_cap = indices.shape[0]
+        pos = torch.arange(nnz_cap, device=device)
+        live = pos < offsets[-1]
+        # Padded entries get an out-of-range sentinel so they sort last.
+        flat_idx = torch.where(live, indices, torch.full_like(indices, SENTINEL))
+        sample_ids = extract_row_ids_from_csr(offsets, indices).to(torch.int32)
+        grad_rows_in = grad_y
+        nnz = offsets[-1]
+
+    # Per-position coefficient. An unweighted fixed lookup has one constant,
+    # folded into grad_y (in grad_y's dtype, before the cast, with 1/hotness
+    # rounded to that dtype first, as JAX rounds the Python float), so the
+    # COO carries no coefficient.
+    if weights is None and offsets is None:
+        coeff = None
+        if mode == CombineMode.MEAN:
+            grad_rows_in = grad_rows_in * rounded_reciprocal(indices.shape[1],
+                                                             grad_rows_in.dtype)
+    else:
+        coeff = torch.ones(nnz_cap, dtype=acc_dt, device=device)
+        if weights is not None:
+            coeff = coeff * weights.reshape(-1).to(acc_dt)
+        if mode == CombineMode.MEAN:
+            hot = (offsets[1:] - offsets[:-1]).to(acc_dt)
+            inv_hot = torch.where(hot == 0, torch.zeros_like(hot),
+                                  1.0 / hot.clamp(min=1.0))
+            coeff = coeff * inv_hot[sample_ids.long()]
+        if live is not None:
+            coeff = coeff * live.to(acc_dt)
+
+    grad_table = None
+    if need_table:
+        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+        grad_table = dispatch.backward(
+            grad_rows_in.contiguous(),
+            num_categories,
+            t_idx,
+            t_sid,
+            None if t_coeff is None else t_coeff.to(torch.float32),
+            nnz=nnz,
+            backend=backend,
+            accumulation_dtype=acc_dt,
+        )
+
+    # --- Gradient w.r.t. weights (an extension beyond the reference) -------
+    grad_weights = None
+    if weights is not None and need_weights:
+        safe_idx = flat_idx.clamp(0, num_categories - 1)
+        dw = torch.empty(nnz_cap, dtype=acc_dt, device=device)
+        for p0 in range(0, nnz_cap, _WEIGHTS_GRAD_SLICE):
+            p1 = min(p0 + _WEIGHTS_GRAD_SLICE, nnz_cap)
+            rows = table.index_select(0, safe_idx[p0:p1]).to(acc_dt)
+            g = grad_rows_in.index_select(0, sample_ids[p0:p1]).to(acc_dt)
+            dw[p0:p1] = (rows * g).sum(dim=-1)
+        if live is not None:
+            dw = dw * live.to(acc_dt)
+        grad_weights = dw.reshape(weights.shape).to(weights.dtype)
+    return grad_table, grad_weights

@@ -1,0 +1,178 @@
+"""The sorted-COO backward on its hand-written Hopper kernel, the counterpart
+of ``cuembed_tpu/ops/pallas_backward.py``.
+
+* :func:`embedding_backward_cuda` runs K3 in full mode: the
+  ``[num_categories, width]`` gradient (``csrc/backward.cu``, which replaces
+  ``pallas_backward.py::_make_bwd_kernel``).
+* :func:`embedding_backward_cuda_compressed` runs K3 in compressed mode: one
+  row per run of equal indices.
+
+Each wrapper checks its inputs, then computes with the plain PyTorch version
+(:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU, and
+launches K3 for tensors on a CUDA device, on the current stream. A kernel
+that fails to build or launch raises; nothing falls back. Each wrapper's
+``launches`` attribute counts its launches of K3.
+
+K3 sums each run in fp32 in position order, and the output rounds once to
+``grad_y``'s dtype; the plain version adds position by position in
+``grad_y``'s dtype. The two agree bit for bit where every partial sum is
+exact, and are otherwise each within the recursive-sum bound of the exact
+sum. Two launches on the same inputs give the same bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuembed_tpu_torch.ops import _build
+from cuembed_tpu_torch.ops.cuda_forward import (
+    _DTYPE_CODE,
+    _check_placement,
+    _raise_on_error,
+    _vec_bytes,
+)
+from cuembed_tpu_torch.ops.lookup_torch import (
+    CompressedGrad,
+    embedding_backward_compressed_torch,
+    embedding_backward_torch,
+)
+from cuembed_tpu_torch.types import INDEX_DTYPES, STORAGE_DTYPES
+
+# Sorted positions per chunk: one row of threads sums a chunk's runs.
+CHUNK = 256
+
+
+def _check_coo(grad_y, t_idx, t_sid, t_w):
+    if grad_y.dim() != 2 or grad_y.dtype not in STORAGE_DTYPES:
+        raise ValueError(
+            f"grad_y must be [rows, width] of {STORAGE_DTYPES}, got "
+            f"{tuple(grad_y.shape)} {grad_y.dtype}"
+        )
+    if t_idx.dim() != 1 or t_idx.dtype not in INDEX_DTYPES:
+        raise ValueError(f"transpose_indices must be flat int32/int64, got {t_idx.dtype}")
+    if t_sid.shape != t_idx.shape or t_sid.dtype not in INDEX_DTYPES:
+        raise ValueError("transpose_sample_ids must be int32/int64 like the indices")
+    if t_w is not None and (t_w.dtype != torch.float32 or t_w.shape != t_idx.shape):
+        raise ValueError("transpose_weights must be float32 like the indices")
+
+
+def _live(nnz, cap: int) -> int:
+    return cap if nnz is None else max(0, min(int(nnz), cap))
+
+
+def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed):
+    """K3 over the first ``live`` sorted positions; returns num_unique (a
+    0-dim int64 tensor) in compressed mode."""
+    width = grad_y.shape[1]
+    num_chunks = -(-live // CHUNK)
+    device = grad_y.device
+    head = torch.empty((num_chunks, width), dtype=torch.float32, device=device)
+    tail = torch.empty_like(head)
+    ranks = tail_rank = num_unique = None
+    if compressed:
+        ranks = torch.empty(num_chunks, dtype=torch.int64, device=device)
+        tail_rank = torch.empty_like(ranks)
+        num_unique = torch.empty((), dtype=torch.int64, device=device)
+    t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
+    lib = _build.load_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(device):
+        err = lib.cuembed_coo_backward(
+            grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
+            out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
+            ptr(ranks), ptr(tail_rank), ptr(num_unique),
+            num_rows, grad_y.shape[0], live, width, CHUNK,
+            _DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
+            _vec_bytes(width, grad_y.element_size(), grad_y, out), int(compressed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(err, "coo_backward_kernel")
+    return num_unique
+
+
+def embedding_backward_cuda(
+    grad_y: torch.Tensor,
+    num_categories: int,
+    transpose_indices: torch.Tensor,
+    transpose_sample_ids: torch.Tensor,
+    transpose_weights: torch.Tensor | None = None,
+    *,
+    nnz=None,
+    initial_grad: torch.Tensor | None = None,
+    live_cap: int | None = None,
+) -> torch.Tensor:
+    """Full gradient on K3 (arguments as
+    :func:`~cuembed_tpu_torch.ops.lookup_torch.embedding_backward_torch`).
+
+    ``transpose_indices`` must be sorted over the live prefix. Entries out
+    of ``[0, num_categories)`` and positions at or past ``nnz`` are dropped.
+    ``initial_grad`` (``grad_y``'s dtype, contiguous) is added into in
+    place and returned. ``live_cap`` changes nothing here: K3 reads only the
+    live prefix.
+    """
+    _check_coo(grad_y, transpose_indices, transpose_sample_ids, transpose_weights)
+    shape = (num_categories, grad_y.shape[1])
+    if initial_grad is not None and (
+        tuple(initial_grad.shape) != shape or initial_grad.dtype != grad_y.dtype
+    ):
+        raise ValueError(f"initial_grad must be {shape} of {grad_y.dtype}")
+    tensors = [grad_y, transpose_indices, transpose_sample_ids] + [
+        t for t in (transpose_weights, initial_grad) if t is not None
+    ]
+    if not _check_placement(tensors):
+        return embedding_backward_torch(
+            grad_y, num_categories, transpose_indices, transpose_sample_ids,
+            transpose_weights, nnz=nnz, initial_grad=initial_grad, live_cap=live_cap,
+        )
+    out = (torch.zeros(shape, dtype=grad_y.dtype, device=grad_y.device)
+           if initial_grad is None else initial_grad)
+    live = _live(nnz, transpose_indices.shape[0])
+    if live == 0 or grad_y.shape[1] == 0:
+        return out
+    _launch(grad_y, transpose_indices, transpose_sample_ids, transpose_weights, out,
+            None, live, num_categories, compressed=False)
+    embedding_backward_cuda.launches += 1
+    return out
+
+
+embedding_backward_cuda.launches = 0
+
+
+def embedding_backward_cuda_compressed(
+    grad_y: torch.Tensor,
+    transpose_indices: torch.Tensor,
+    transpose_sample_ids: torch.Tensor,
+    transpose_weights: torch.Tensor | None = None,
+    *,
+    nnz=None,
+    live_cap: int | None = None,
+) -> CompressedGrad:
+    """Compressed gradient on K3 (arguments as
+    :func:`~cuembed_tpu_torch.ops.lookup_torch.embedding_backward_compressed_torch`):
+    run ``r`` of the live prefix, out-of-range runs included, goes to
+    ``rows[r]`` and ``unique_indices[r]``; the rest is zero."""
+    _check_coo(grad_y, transpose_indices, transpose_sample_ids, transpose_weights)
+    tensors = [grad_y, transpose_indices, transpose_sample_ids] + (
+        [transpose_weights] if transpose_weights is not None else [])
+    if not _check_placement(tensors):
+        return embedding_backward_compressed_torch(
+            grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
+            nnz=nnz, live_cap=live_cap,
+        )
+    cap, width = transpose_indices.shape[0], grad_y.shape[1]
+    rows = torch.zeros((cap, width), dtype=grad_y.dtype, device=grad_y.device)
+    uniq = torch.zeros_like(transpose_indices)
+    live = _live(nnz, cap)
+    if live == 0:
+        return CompressedGrad(rows, uniq, torch.zeros((), dtype=torch.int64,
+                                                      device=grad_y.device))
+    num_unique = _launch(grad_y, transpose_indices, transpose_sample_ids,
+                         transpose_weights, rows, uniq, live, 0, compressed=True)
+    embedding_backward_cuda_compressed.launches += 1
+    return CompressedGrad(rows, uniq, num_unique)
+
+
+embedding_backward_cuda_compressed.launches = 0

@@ -1,17 +1,25 @@
-"""Plain PyTorch forward lookup, the counterpart of the forward half of
+"""Plain PyTorch lookup and backward, the counterpart of
 ``cuembed_tpu/ops/lookup_xla.py``.
 
 It is the path for CPU tensors and the yardstick the CUDA kernels are held
-to. It keeps the JAX rounding choices: rows are cast to the accumulation
+to. The forward keeps the JAX rounding choices: rows are cast to the accumulation
 dtype, weighted rows are multiplied and then added one position at a time in
 that dtype (so a storage-dtype sum rounds at each add), fixed MEAN multiplies
 by the rounded reciprocal ``acc(1/hotness)``, and CSR MEAN sums first and
 then scales by ``acc(1/acc(h_s))``. Summing one position at a time, in
 position order, is also the order the kernels use, so on the same inputs the
 two agree bit for bit.
+
+The backward mirrors ``embedding_backward_xla``: it gathers ``grad_y`` rows,
+multiplies them by their coefficient in ``grad_y``'s dtype and adds them one
+position at a time, in sorted order, in that dtype. K3 instead sums each run
+in fp32 and adds the sum to the row once (the Pallas kernel's rounding), so
+the two agree bit for bit only where every partial sum is exact.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,8 +29,11 @@ from cuembed_tpu_torch.types import CombineMode, accumulation_dtype
 
 def rounded_reciprocal(n: int, acc_dtype: torch.dtype) -> float:
     """``acc_dtype(1/n)`` as a Python float, rounded as the JAX package rounds
-    ``np.dtype(acc_dt).type(1.0 / n)``: straight from float64 for fp32 and
-    fp16, through fp32 for bf16 (ml_dtypes' conversion)."""
+    ``np.dtype(acc_dt).type(1.0 / n)``, and as JAX rounds a Python float
+    that multiplies an array of that dtype: straight from float64 for fp32
+    and fp16, through fp32 for bf16 (ml_dtypes' conversion)."""
+    if acc_dtype == torch.float64:
+        return 1.0 / n
     if acc_dtype == torch.float32:
         return float(np.float32(1.0 / n))
     if acc_dtype == torch.float16:
@@ -103,3 +114,144 @@ def embedding_forward_torch(
         )
         acc = acc * scale[:, None]
     return acc.to(table.dtype)
+
+
+# Index of padding positions in a COO: past every real row, so it sorts last
+# and is dropped by the full backward.
+SENTINEL = 2**31 - 1
+
+
+class CompressedGrad(NamedTuple):
+    """Compressed (deduplicated) embedding gradient.
+
+    ``rows[i]`` is the gradient for table row ``unique_indices[i]``, for
+    ``i < num_unique``; rows past ``num_unique`` are zero and their
+    ``unique_indices`` are 0.
+    """
+
+    rows: torch.Tensor  # [capacity, width]
+    unique_indices: torch.Tensor  # [capacity]
+    num_unique: torch.Tensor  # 0-dim int64
+
+
+def _live_prefix(t_idx, nnz, live_cap):
+    """The length of the prefix that holds every live entry: the capacity,
+    or ``live_cap`` rounded up to 8 when the live entries fit in it (the
+    JAX ``lax.cond`` fallback, taken on the host)."""
+    cap = t_idx.shape[0]
+    if live_cap is None or not 0 < live_cap < cap:
+        return cap
+    k = -(-live_cap // 8) * 8
+    live_n = int(nnz) if nnz is not None else int((t_idx != SENTINEL).sum())
+    return k if live_n <= k else cap
+
+
+def _add_in_order(out, targets, rows):
+    """``out[targets[p]] += rows[p]`` for every ``p`` in order, each add
+    rounded to ``out``'s dtype, as XLA's scatter-add applies duplicate
+    sorted indices. ``index_add_`` does that for fp32 and float64 on the
+    CPU, but for a half type it sums a target's rows in fp32 and rounds
+    once; there the adds go in steps, step ``j`` adding the ``j``-th
+    position of every run of equal targets."""
+    if out.dtype not in (torch.float16, torch.bfloat16) or targets.numel() == 0:
+        return out.index_add_(0, targets, rows)
+    pos = torch.arange(targets.numel(), device=targets.device)
+    starts = torch.ones_like(targets, dtype=torch.bool)
+    starts[1:] = targets[1:] != targets[:-1]
+    step = pos - torch.cummax(torch.where(starts, pos, 0), 0).values
+    order = torch.sort(step, stable=True).indices
+    for sel in torch.split(order, torch.bincount(step).tolist()):
+        out.index_add_(0, targets[sel], rows[sel])
+    return out
+
+
+def embedding_backward_torch(
+    grad_y: torch.Tensor,
+    num_categories: int,
+    transpose_indices: torch.Tensor,
+    transpose_sample_ids: torch.Tensor,
+    transpose_weights: torch.Tensor | None = None,
+    *,
+    nnz=None,
+    initial_grad: torch.Tensor | None = None,
+    live_cap: int | None = None,
+) -> torch.Tensor:
+    """Full ``[num_categories, width]`` gradient from an index-sorted COO.
+
+    Args:
+      grad_y: ``[rows, width]`` upstream gradient.
+      num_categories: rows of the gradient.
+      transpose_indices / sample_ids / weights: the index-sorted COO
+        ``[capacity]``. Entries whose index is out of range are dropped.
+      nnz: live prefix length (positions >= nnz are dropped); None is the
+        whole capacity.
+      initial_grad: optional ``[num_categories, width]`` buffer of
+        ``grad_y``'s dtype to add into, in place (the reference's
+        ``skip_grad_init``); it is returned.
+      live_cap: a bound on the live entries; it only limits the work.
+
+    Returns:
+      ``[num_categories, width]`` in ``grad_y``'s dtype.
+    """
+    k = _live_prefix(transpose_indices, nnz, live_cap)
+    t_idx, t_sid = transpose_indices[:k], transpose_sample_ids[:k]
+    live = torch.arange(k, device=t_idx.device) < (k if nnz is None else int(nnz))
+    coeff = live.to(grad_y.dtype)
+    if transpose_weights is not None:
+        coeff = coeff * transpose_weights[:k].to(grad_y.dtype)
+    g = grad_y.index_select(0, t_sid.long()) * coeff[:, None]
+    if initial_grad is None:
+        grad = torch.zeros((num_categories, grad_y.shape[1]), dtype=grad_y.dtype,
+                           device=grad_y.device)
+    else:
+        grad = initial_grad
+    # index_add_ adds every entry: drop the dead and out-of-range ones first
+    # (JAX's mode="drop").
+    keep = live & (t_idx >= 0) & (t_idx < num_categories)
+    return _add_in_order(grad, t_idx[keep].long(), g[keep])
+
+
+def _compressed_scatter(grad_y, t_idx, t_sid, t_w, live_count, *, out_cap):
+    """Run ``r`` of the live prefix sums into ``rows[r]`` and names its
+    index in ``uniq[r]`` (0 past the runs); returns ``(rows, uniq, n_runs)``."""
+    k = t_idx.shape[0]
+    device = t_idx.device
+    live = torch.arange(k, device=device) < (k if live_count is None else int(live_count))
+    idxs = torch.where(live, t_idx, torch.full_like(t_idx, SENTINEL))
+    boundary = torch.cat([live[:1], (idxs[1:] != idxs[:-1]) & live[1:]])
+    ranks = torch.cumsum(boundary.long(), 0) - 1
+    n_runs = (ranks[-1] + 1).clamp(min=0) if k else torch.zeros((), dtype=torch.int64,
+                                                               device=device)
+    g = grad_y.index_select(0, t_sid.long())
+    if t_w is not None:
+        g = g * t_w.to(grad_y.dtype)[:, None]
+    rows = torch.zeros((out_cap, grad_y.shape[1]), dtype=grad_y.dtype, device=device)
+    keep = live & (ranks < out_cap)
+    _add_in_order(rows, ranks[keep], g[keep])
+    uniq = torch.zeros((out_cap,), dtype=t_idx.dtype, device=device)
+    starts = boundary & (ranks < out_cap)
+    uniq[ranks[starts]] = t_idx[starts]
+    return rows, uniq, n_runs
+
+
+def embedding_backward_compressed_torch(
+    grad_y: torch.Tensor,
+    transpose_indices: torch.Tensor,
+    transpose_sample_ids: torch.Tensor,
+    transpose_weights: torch.Tensor | None = None,
+    *,
+    nnz=None,
+    live_cap: int | None = None,
+) -> CompressedGrad:
+    """Compressed gradient: one row per run of equal indices in the live
+    prefix of the index-sorted COO. Every run counts, an out-of-range one
+    (the sentinel) included. The outputs keep the full capacity;
+    ``live_cap`` only limits the work."""
+    cap = transpose_indices.shape[0]
+    k = _live_prefix(transpose_indices, nnz, live_cap)
+    rows, uniq, n_runs = _compressed_scatter(
+        grad_y, transpose_indices[:k], transpose_sample_ids[:k],
+        None if transpose_weights is None else transpose_weights[:k],
+        nnz, out_cap=cap,
+    )
+    return CompressedGrad(rows=rows, unique_indices=uniq, num_unique=n_runs)

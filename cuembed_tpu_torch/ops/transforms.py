@@ -1,8 +1,7 @@
-"""Row-id extraction, the counterpart of the first half of
-``cuembed_tpu/ops/transforms.py``.
-
-``transpose``, ``transpose_masked_compact`` and the compressed-gradient
-helpers belong to the backward and are not ported yet.
+"""Index transforms, the counterpart of ``cuembed_tpu/ops/transforms.py``:
+row-id extraction, the COO transpose (a stable sort by index, tie-broken on
+sample id) and the compressed-gradient remapping. ``torch.sort`` is the
+sort; none of these needs a kernel of its own.
 """
 
 from __future__ import annotations
@@ -42,3 +41,74 @@ def extract_row_ids_for_concat(
 ) -> torch.Tensor:
     """Identity sequence."""
     return torch.arange(nnz, dtype=dtype, device=device)
+
+
+def _permute(order, sample_ids, indices, weights):
+    return (indices[order], sample_ids[order],
+            None if weights is None else weights[order])
+
+
+def transpose(
+    sample_ids: torch.Tensor,
+    indices: torch.Tensor,
+    weights: torch.Tensor | None = None,
+):
+    """Sort the COO by lookup index, ties broken by sample id (the JAX
+    two-key ``lax.sort``), for any sample ids. Weights ride along.
+
+    Returns ``(transpose_indices, transpose_sample_ids, transpose_weights)``.
+    """
+    order = torch.sort(sample_ids, stable=True).indices
+    order = order[torch.sort(indices[order], stable=True).indices]
+    return _permute(order, sample_ids, indices, weights)
+
+
+def transpose_position_ordered(
+    sample_ids: torch.Tensor,
+    indices: torch.Tensor,
+    weights: torch.Tensor | None = None,
+):
+    """:func:`transpose` for sample ids that do not decrease with the
+    position (every COO the lookup builds: fixed, CONCAT and CSR): one
+    stable sort by index then keeps equal indices in sample-id order."""
+    order = torch.sort(indices, stable=True).indices
+    return _permute(order, sample_ids, indices, weights)
+
+
+def transpose_masked_compact(
+    sample_ids: torch.Tensor,
+    masked_idx: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    *,
+    chunk_elems: int = 2048,
+    nonhead_slots: int = 0,
+):
+    """Index-sort a sentinel-masked COO. Its contract is equality with
+    :func:`transpose` on every non-sentinel entry, which ``transpose`` meets
+    on all of them; the TPU's per-chunk compaction (``chunk_elems``,
+    ``nonhead_slots``) is not needed here."""
+    del chunk_elems, nonhead_slots
+    return transpose(sample_ids, masked_idx, weights)
+
+
+def compute_compressed_grad_indices(sorted_indices: torch.Tensor) -> torch.Tensor:
+    """Dense ``0..num_unique-1`` ids over a sorted index array:
+    ``remapped[i]`` counts the index changes up to ``i``."""
+    flags = torch.cat([
+        sorted_indices.new_zeros(min(1, sorted_indices.shape[0])),
+        (sorted_indices[1:] != sorted_indices[:-1]).to(sorted_indices.dtype),
+    ])
+    return torch.cumsum(flags, 0).to(sorted_indices.dtype)
+
+
+def compact_sparse_indices(
+    sorted_indices: torch.Tensor,
+    remapped_indices: torch.Tensor,
+    fill_value: int | None = None,
+) -> torch.Tensor:
+    """Inverse mapping, ``out[remapped[i]] = sorted_indices[i]``, at the full
+    capacity; entries at or past num_unique hold ``fill_value`` (default 0).
+    Every position of a run writes the same value."""
+    out = torch.full_like(sorted_indices, fill_value or 0)
+    out[remapped_indices.long()] = sorted_indices
+    return out

@@ -1,0 +1,225 @@
+"""Sparse embedding-table training updates, the counterpart of
+``cuembed_tpu/train.py``.
+
+Autograd through :func:`~cuembed_tpu_torch.embedding_lookup` is exact but
+materializes a dense ``[num_categories, width]`` gradient: at the flagship
+size a 10 GB fp32 buffer, zeroed and read back every step. These functions
+apply the embedding gradient sparsely instead:
+
+* :func:`embedding_grad_y` splits the model's backward at the pooled
+  embedding: dense parameters keep autograd, the table takes its update
+  from the sparse routines below.
+* :func:`sgd_sparse_update`, :func:`rowwise_adagrad_sparse_update` and
+  :func:`adam_sparse_update` sort the lookup's COO by index, sum each
+  index's run on K3 in compressed mode (``dispatch.backward_compressed``),
+  and update one row per distinct index (``index_add_`` / ``index_copy_``
+  on unique indices, so the result is deterministic on the card).
+
+Updates happen in place on the tensors passed in, which are returned, as
+the JAX functions return the new arrays. The tiered branches of the JAX
+module (``tiered_cfg``) are not ported yet (ROADMAP P7).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuembed_tpu_torch.ops import dispatch
+from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
+from cuembed_tpu_torch.ops.transforms import (
+    extract_row_ids_from_csr,
+    transpose_position_ordered,
+)
+from cuembed_tpu_torch.types import CombineMode
+
+
+def embedding_grad_y(loss_fn, pooled, *args, **kwargs) -> torch.Tensor:
+    """Gradient of ``loss_fn(pooled, *args, **kwargs)`` w.r.t. the pooled
+    embeddings (computed without a graph to the table), for a sparse update."""
+    pooled = pooled.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = loss_fn(pooled, *args, **kwargs)
+    (grad,) = torch.autograd.grad(loss, pooled)
+    return grad
+
+
+def _flatten_coo(indices, offsets, weights, mode, acc_dt):
+    """The lookup as a COO: ``(flat_idx, sample_ids, coeff)``. ``coeff`` is
+    None when every position has coefficient one (callers fold MEAN's
+    uniform scale into grad_y). CSR padding gets index 0 and coefficient 0."""
+    if offsets is None:
+        batch, hotness = indices.shape
+        n = batch * hotness
+        flat_idx = indices.reshape(-1)
+        pos = torch.arange(n, dtype=torch.int32, device=indices.device)
+        if mode == CombineMode.CONCAT:
+            # CONCAT's grad_y has one row per (sample, position).
+            if weights is not None:
+                raise ValueError("weights unsupported with CONCAT")
+            sample_ids = pos
+        else:
+            sample_ids = pos // hotness
+        if weights is None:
+            return flat_idx, sample_ids, None
+        coeff = weights.reshape(-1).to(acc_dt)
+        if mode == CombineMode.MEAN:
+            coeff = coeff / hotness
+        return flat_idx, sample_ids, coeff
+    n = indices.shape[0]
+    live = torch.arange(n, device=indices.device) < offsets[-1]
+    flat_idx = torch.where(live, indices, torch.zeros_like(indices))
+    sample_ids = extract_row_ids_from_csr(offsets, indices).to(torch.int32)
+    coeff = live.to(acc_dt)
+    if weights is not None:
+        coeff = coeff * weights.to(acc_dt)
+    if mode == CombineMode.MEAN:
+        hot = (offsets[1:] - offsets[:-1]).to(acc_dt)
+        inv = torch.where(hot == 0, torch.zeros_like(hot), 1.0 / hot.clamp(min=1.0))
+        coeff = coeff * inv[sample_ids.long()]
+    return flat_idx, sample_ids, coeff
+
+
+def _no_tiering(tiered_cfg):
+    if tiered_cfg is not None:
+        raise NotImplementedError(
+            "tiered sparse updates are not ported yet (ROADMAP P7)"
+        )
+
+
+def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
+              drop_zero_coeff):
+    """Per-row gradient sums of the batch: ``(rows, uniq)`` for the distinct
+    in-range indices, ascending. With ``drop_zero_coeff``, positions whose
+    coefficient is 0 (CSR padding, zero weights) touch no row."""
+    gy = grad_y.to(torch.float32)
+    if weights is None and offsets is None and mode == CombineMode.MEAN:
+        gy = gy * (1.0 / indices.shape[1])  # the uniform coefficient folds into gy
+    flat_idx, sample_ids, coeff = _flatten_coo(indices, offsets, weights, mode,
+                                               torch.float32)
+    if drop_zero_coeff and coeff is not None:
+        flat_idx = torch.where(coeff != 0, flat_idx, torch.full_like(flat_idx, SENTINEL))
+    t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+    cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
+                                      backend=backend)
+    nu = int(cg.num_unique)
+    rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
+    # The sentinel run (and any out-of-range index) updates nothing.
+    keep = (uniq >= 0) & (uniq < table.shape[0])
+    return rows[keep], uniq[keep].long()
+
+
+@torch.no_grad()
+def sgd_sparse_update(
+    table: torch.Tensor,
+    indices: torch.Tensor,
+    grad_y: torch.Tensor,
+    *,
+    lr: float,
+    offsets: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    mode: CombineMode = CombineMode.SUM,
+    tiered_cfg=None,
+    overflow: str = "fallback",
+    backend: str = "auto",
+) -> torch.Tensor:
+    """One SGD step on the table, applied sparsely and in place:
+    ``table - lr * dense_grad`` (up to fp reassociation) without the dense
+    gradient. ``overflow`` only matters on the tiered path."""
+    del overflow
+    _no_tiering(tiered_cfg)
+    rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
+                           drop_zero_coeff=False)
+    return table.index_add_(0, uniq, (-lr * rows).to(table.dtype))
+
+
+def rowwise_adagrad_init(num_categories: int, *, device=None) -> torch.Tensor:
+    """Per-row accumulator state (fp32), one scalar per table row."""
+    return torch.zeros((num_categories,), dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def rowwise_adagrad_sparse_update(
+    table: torch.Tensor,
+    accum: torch.Tensor,
+    indices: torch.Tensor,
+    grad_y: torch.Tensor,
+    *,
+    lr: float,
+    eps: float = 1e-8,
+    offsets: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    mode: CombineMode = CombineMode.SUM,
+    tiered_cfg=None,
+    unique_cap: int | None = None,
+    overflow: str = "fallback",
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise AdaGrad (the standard DLRM embedding optimizer), in place.
+
+    Per touched row r with gradient row G_r:
+      ``accum[r] += mean(G_r^2)``;
+      ``table[r] -= lr * G_r / sqrt(accum[r] + eps)``.
+    Untouched rows, and rows whose only lookups have coefficient 0, keep
+    their state and values. ``unique_cap`` and ``overflow`` bound the
+    tiered path's buffers; here they do not change the result.
+    """
+    del unique_cap, overflow
+    _no_tiering(tiered_cfg)
+    rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
+                           drop_zero_coeff=True)
+    new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
+    accum.index_copy_(0, uniq, new_acc)
+    scale = -lr / torch.sqrt(new_acc + eps)
+    table.index_add_(0, uniq, (rows * scale[:, None]).to(table.dtype))
+    return table, accum
+
+
+def adam_init(num_categories: int, width: int, *, device=None):
+    """Per-element Adam moments ``(m, v)``, fp32, zero-initialized."""
+    return (torch.zeros((num_categories, width), dtype=torch.float32, device=device),
+            torch.zeros((num_categories, width), dtype=torch.float32, device=device))
+
+
+@torch.no_grad()
+def adam_sparse_update(
+    table: torch.Tensor,
+    m: torch.Tensor,
+    v: torch.Tensor,
+    step,
+    indices: torch.Tensor,
+    grad_y: torch.Tensor,
+    *,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    offsets: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    mode: CombineMode = CombineMode.SUM,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sparse lazy Adam, in place: the moments decay and update only on
+    touched rows.
+
+    Per touched row r with batch gradient row ``G_r``::
+
+        m[r] = b1*m[r] + (1-b1)*G_r
+        v[r] = b2*v[r] + (1-b2)*G_r^2
+        table[r] -= lr * (m[r]/(1-b1^t)) / (sqrt(v[r]/(1-b2^t)) + eps)
+
+    ``step`` is the 1-based global step; a step below 1 counts as 1.
+    """
+    rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
+                           drop_zero_coeff=True)
+    m_rows = b1 * m.index_select(0, uniq) + (1.0 - b1) * rows
+    v_rows = b2 * v.index_select(0, uniq) + (1.0 - b2) * rows * rows
+    # Bias correction in fp32, as the JAX function computes it.
+    f32 = dict(dtype=torch.float32, device=rows.device)
+    t = torch.as_tensor(step, **f32).clamp(min=1.0)
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, **f32), t)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, **f32), t)
+    upd = lr * (m_rows / bc1) / (torch.sqrt(v_rows / bc2) + eps)
+    m.index_copy_(0, uniq, m_rows)
+    v.index_copy_(0, uniq, v_rows)
+    table.index_add_(0, uniq, (-upd).to(table.dtype))
+    return table, m, v

@@ -41,8 +41,11 @@ def accumulation_dtype(
     """Pick the reduction dtype for a given storage dtype.
 
     Half-precision rows reduce in fp32 unless the caller opts into
-    native-precision math (the reference's ``fp16_math=true``).
+    native-precision math (the reference's ``fp16_math=true``). A float64
+    table (the plain version only, for gradient checks) reduces in float64.
     """
+    if storage_dtype == torch.float64:
+        return torch.float64
     if storage_dtype == torch.float32 or not low_precision_math:
         return torch.float32
     return storage_dtype

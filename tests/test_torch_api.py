@@ -160,21 +160,26 @@ def test_tpu_engines_not_ported(problem, kw):
             torch.from_numpy(offsets), **kw)
 
 
-def test_requires_grad_guard(problem):
-    """Forward only: a table or weights that need a gradient raise under
-    grad mode, and look up normally under no_grad."""
+def test_lookup_is_differentiable(problem):
+    """A table (and weights) that require grad give an output that requires
+    grad, and its backward fills their gradients; under no_grad the output
+    has none."""
     table, idx, weights, _, _, _, _ = problem
     t = torch.from_numpy(table).requires_grad_()
-    i = torch.from_numpy(idx)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tce.embedding_lookup(t, i)
     w = torch.from_numpy(weights).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K3"):
-        tce.embedding_lookup(t.detach(), i, w)
+    i = torch.from_numpy(idx)
+    out = tce.embedding_lookup(t, i, w)
+    assert out.requires_grad
+    out.sum().backward()
+    assert t.grad is not None and t.grad.shape == t.shape
+    assert w.grad is not None and w.grad.shape == w.shape
+    # d(sum)/d table[r] counts the weighted lookups of r; d/d w is the row sum.
+    want = torch.zeros_like(t.grad).index_add_(
+        0, i.reshape(-1), w.detach().reshape(-1, 1).expand(-1, W).contiguous())
+    torch.testing.assert_close(t.grad, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(w.grad, t.detach()[i].sum(-1), rtol=1e-6, atol=1e-6)
     with torch.no_grad():
-        out = tce.embedding_lookup(t, i)
-    assert not out.requires_grad
-    assert torch.equal(out, tce.embedding_lookup(t.detach(), i))
+        assert not tce.embedding_lookup(t, i).requires_grad
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])

@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from cuembed_tpu.types import CombineMode as JMode
+from cuembed_tpu.utils import benchmarking as jax_bench
 from cuembed_tpu.utils.benchmarking import forward_app_bytes as jax_app_bytes
 
 from cuembed_tpu_torch import CombineMode
@@ -46,3 +47,40 @@ def test_timer_needs_a_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
             benchmarking.cuda_time_ms(lambda: None)
+
+
+@pytest.mark.parametrize("is_csr", [False, True], ids=["fixed", "csr"])
+@pytest.mark.parametrize("is_weighted", [False, True])
+@pytest.mark.parametrize("compressed", [False, True])
+def test_transpose_app_bytes_matches_jax(is_csr, is_weighted, compressed):
+    kw = dict(nnz=4_194_304, index_bytes=8, batch=65536, is_csr=is_csr,
+              is_weighted=is_weighted, compressed=compressed)
+    assert benchmarking.transpose_app_bytes(**kw) == jax_bench.transpose_app_bytes(**kw)
+
+
+@pytest.mark.parametrize("mode", ["sum", "concat"])
+@pytest.mark.parametrize("is_weighted", [False, True])
+@pytest.mark.parametrize("l2_variant", [False, True])
+def test_backward_app_bytes_matches_jax(mode, is_weighted, l2_variant):
+    kw = dict(nnz=4_194_304, batch=65536, width=256, num_unique=571_818,
+              elem_bytes=4, index_bytes=8, is_weighted=is_weighted,
+              l2_variant=l2_variant)
+    got = benchmarking.backward_app_bytes(mode=CombineMode(mode), **kw)
+    assert got == jax_bench.backward_app_bytes(mode=JMode(mode), **kw)
+
+
+def test_backward_bound_at_the_flagship_batch():
+    """The flagship fixed batch: fp32 grad_y [65536, 256], 4,194,304 sorted
+    positions (int64 index, int32 sample id), 571,818 distinct rows."""
+    kw = dict(gy_rows=65536, width=256, elem_bytes=4, live=4_194_304, index_bytes=8,
+              num_unique=571_818, weighted=False)
+    full = benchmarking.backward_bound(compressed=False, **kw)
+    assert full["bytes"] == 67_108_864 + 50_331_648 + 1_171_083_264 == 1_288_523_776
+    assert full["bound_by"] == "bytes"
+    assert full["bound_ms"] == pytest.approx(0.3846, abs=1e-4)
+    comp = benchmarking.backward_bound(compressed=True, **kw)
+    # Touched rows written once, with their int64 indices.
+    assert comp["bytes"] == 702_982_144 + 571_818 * 8
+    weighted = benchmarking.backward_bound(compressed=False, **{**kw, "weighted": True})
+    assert weighted["bytes"] == full["bytes"] + 4 * 4_194_304
+    assert weighted["flops"] == 2 * full["flops"] == 2 * 4_194_304 * 256

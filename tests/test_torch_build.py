@@ -11,13 +11,14 @@ import pytest
 import torch
 
 import cuembed_tpu_torch as tce
-from cuembed_tpu_torch.ops import _build, cuda_forward
+from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward
 
 
 def _fake_sources(tmp_path, text):
     src = tmp_path / "csrc"
     src.mkdir(exist_ok=True)
-    (src / "forward.cu").write_text(text)
+    for name in _build.SOURCES + _build.HEADERS:
+        (src / name).write_text(text)
     return src
 
 
@@ -64,3 +65,14 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
         assert torch.equal(got, tce.embedding_forward_torch(table, flat, offsets))
     assert cuda_forward.embedding_forward_cuda.launches == k1
     assert cuda_forward.embedding_forward_cuda_csr.launches == k2
+    # The backward, through autograd and the sparse optimizers, likewise.
+    k3 = (cuda_backward.embedding_backward_cuda.launches,
+          cuda_backward.embedding_backward_cuda_compressed.launches)
+    leaf = table.clone().requires_grad_()
+    tce.embedding_lookup(leaf, idx).sum().backward()
+    tce.embedding_lookup_csr(leaf, flat, offsets).sum().backward()
+    tce.rowwise_adagrad_sparse_update(table.clone(), tce.rowwise_adagrad_init(50), idx,
+                                      torch.ones((6, 12)), lr=0.1)
+    assert leaf.grad is not None
+    assert k3 == (cuda_backward.embedding_backward_cuda.launches,
+                  cuda_backward.embedding_backward_cuda_compressed.launches)

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions.
+"""K1, K2 and K3 on the card against their plain versions.
 
 Marked ``cuda``: run on a machine with an NVIDIA GPU with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``. Without a card
@@ -10,8 +10,14 @@ import pytest
 import torch
 
 import cuembed_tpu_torch as tce
-from cuembed_tpu_torch.ops import cuda_forward
-from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch
+from cuembed_tpu_torch.ops import cuda_backward, cuda_forward
+from cuembed_tpu_torch.ops.lookup_torch import (
+    SENTINEL,
+    embedding_backward_compressed_torch,
+    embedding_backward_torch,
+    embedding_forward_torch,
+    rounded_reciprocal,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +102,124 @@ def test_misaligned_table_takes_a_narrower_load(gen, shift):
     idx = torch.randint(0, 100, (9, 5), device="cuda", generator=gen)
     got = cuda_forward.embedding_forward_cuda(table, idx)
     assert torch.equal(got, embedding_forward_torch(table, idx))
+
+
+def _sorted_coo(gen, n, V, rows, index_dtype, *, long_run=0, pad=0):
+    """An index-sorted COO of n live entries (the first ``long_run`` share
+    one index, a run over several chunks) and ``pad`` sentinel entries."""
+    idx = torch.randint(0, V, (n,), device="cuda", generator=gen)
+    idx[:long_run] = 7
+    sid = torch.randint(0, rows, (n,), device="cuda", generator=gen)
+    order = torch.sort(idx, stable=True).indices
+    t_idx = torch.cat([idx[order], torch.full((pad,), SENTINEL, device="cuda")])
+    t_sid = torch.cat([sid[order], torch.zeros(pad, dtype=sid.dtype, device="cuda")])
+    return t_idx.to(index_dtype), t_sid.to(torch.int32)
+
+
+def _integer_problem(gen, dtype, width, index_dtype, weighted, V=200, rows=64,
+                     n=1500, pad=5):
+    """Integer-exact data: every partial sum is exact in fp32 and in the
+    half types (values in {-1, 0, 1}, weights in {0.5, 1}; for fp16/bf16
+    seven in eight values are 0, so that the partial sums of the long run
+    stay well inside bf16's 8 bits)."""
+    t_idx, t_sid = _sorted_coo(gen, n, V, rows, index_dtype,
+                               long_run=3 * cuda_backward.CHUNK + 50, pad=pad)
+    gy = torch.randint(-1, 2, (rows, width), device="cuda", generator=gen)
+    if dtype != torch.float32:
+        gy *= torch.rand((rows, width), device="cuda", generator=gen) < 0.125
+    gy = gy.to(dtype)
+    w = None
+    if weighted:
+        w = torch.tensor([0.5, 1.0], device="cuda")[
+            torch.randint(0, 2, t_idx.shape, device="cuda", generator=gen)]
+    return gy, t_idx, t_sid, w
+
+
+@pytest.mark.parametrize("width", [2, 36, 256, 514])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k3_full_equals_plain_version(gen, weighted, dtype, width):
+    """Bitwise on integer-exact data, with a run over three chunks, sentinel
+    padding, an nnz prefix and an initial gradient."""
+    V = 200
+    for index_dtype in (torch.int32, torch.int64):
+        gy, t_idx, t_sid, w = _integer_problem(gen, dtype, width, index_dtype, weighted)
+        for nnz in (None, t_idx.shape[0] - 40):
+            got = cuda_backward.embedding_backward_cuda(gy, V, t_idx, t_sid, w, nnz=nnz)
+            want = embedding_backward_torch(gy, V, t_idx, t_sid, w, nnz=nnz)
+            assert torch.equal(got, want)
+        init = torch.randint(-2, 3, (V, width), device="cuda", generator=gen).to(dtype)
+        got = cuda_backward.embedding_backward_cuda(gy, V, t_idx, t_sid, w,
+                                                    initial_grad=init.clone())
+        want = embedding_backward_torch(gy, V, t_idx, t_sid, w, initial_grad=init.clone())
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width", [2, 36, 256, 514])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k3_compressed_equals_plain_version(gen, weighted, dtype, width):
+    """Every run of the live prefix, the sentinel's included, gets its rank."""
+    for index_dtype in (torch.int32, torch.int64):
+        gy, t_idx, t_sid, w = _integer_problem(gen, dtype, width, index_dtype, weighted)
+        for nnz in (None, t_idx.shape[0] - 3, 0):
+            got = cuda_backward.embedding_backward_cuda_compressed(gy, t_idx, t_sid, w,
+                                                                   nnz=nnz)
+            want = embedding_backward_compressed_torch(gy, t_idx, t_sid, w, nnz=nnz)
+            assert int(got.num_unique) == int(want.num_unique)
+            assert torch.equal(got.rows, want.rows)
+            assert torch.equal(got.unique_indices, want.unique_indices)
+
+
+def test_k3_is_deterministic(gen):
+    """Random reals, long runs: two launches give the same bits, and both
+    modes stay within the fp32 recursive-sum bound of a float64 sum."""
+    V, rows, width, n = 1000, 4096, 256, 200_000
+    t_idx, t_sid = _sorted_coo(gen, n, V, rows, torch.int64, long_run=60_000)
+    gy = torch.randn((rows, width), device="cuda", generator=gen)
+    w = torch.rand(n, device="cuda", generator=gen)
+    first = cuda_backward.embedding_backward_cuda(gy, V, t_idx, t_sid, w)
+    assert torch.equal(first, cuda_backward.embedding_backward_cuda(gy, V, t_idx, t_sid, w))
+    c1 = cuda_backward.embedding_backward_cuda_compressed(gy, t_idx, t_sid, w)
+    c2 = cuda_backward.embedding_backward_cuda_compressed(gy, t_idx, t_sid, w)
+    assert torch.equal(c1.rows, c2.rows)
+    terms = gy.double()[t_sid.long()] * w.double()[:, None]
+    exact = torch.zeros((V, width), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, t_idx, terms)
+    mass = torch.zeros_like(exact).index_add_(0, t_idx, terms.abs())
+    count = torch.bincount(t_idx, minlength=V).double()[:, None]
+    # n - 1 adds and one multiply per term, each within 2^-24 relative.
+    assert ((first.double() - exact).abs() <= (count + 1) * 2.0**-24 * mass).all()
+    nu = int(c1.num_unique)
+    assert torch.equal(first[c1.unique_indices[:nu]], c1.rows[:nu])
+
+
+def test_autograd_backward_runs_k3(gen):
+    table = torch.randn((300, 64), device="cuda", generator=gen).requires_grad_()
+    idx = torch.randint(0, 300, (32, 8), device="cuda", generator=gen)
+    before = cuda_backward.embedding_backward_cuda.launches
+    tce.embedding_lookup(table, idx).pow(2).sum().backward()
+    assert cuda_backward.embedding_backward_cuda.launches == before + 1
+    ref = table.detach().clone().requires_grad_()
+    tce.embedding_lookup(ref, idx, backend="xla").pow(2).sum().backward()
+    torch.testing.assert_close(table.grad, ref.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_half_table_gradient_skips_the_fp32_gradient(gen, mode, dtype):
+    """K3 takes a half grad_y as it is: the gradient equals K3 on the fp32
+    cast of grad_y, rounded once to the half type, bit for bit."""
+    V, W = 400, 64
+    table = torch.randn((V, W), device="cuda", generator=gen).to(dtype).requires_grad_()
+    idx = torch.randint(0, V, (96, 7), device="cuda", generator=gen)
+    m = tce.CombineMode(mode)
+    out = tce.embedding_lookup(table, idx, mode=m)
+    gy = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+    out.backward(gy)
+    rows_in = gy * rounded_reciprocal(7, dtype) if mode == "mean" else gy
+    sid = torch.arange(idx.numel(), dtype=torch.int32, device="cuda") // 7
+    t_idx, t_sid, _ = tce.transpose(sid, idx.reshape(-1))
+    want = cuda_backward.embedding_backward_cuda(rows_in.float(), V, t_idx, t_sid).to(dtype)
+    assert table.grad.dtype == dtype
+    assert torch.equal(table.grad, want)

@@ -41,7 +41,8 @@ def test_scan_sees_the_port():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("__init__.py", "types.py", "ops/transforms.py",
                    "ops/lookup_torch.py", "ops/_build.py", "ops/cuda_forward.py",
-                   "ops/dispatch.py", "ops/api.py", "models/embedding_bag.py",
+                   "ops/cuda_backward.py", "ops/dispatch.py", "ops/api.py",
+                   "train.py", "models/embedding_bag.py",
                    "utils/datagen.py", "utils/benchmarking.py"):
         assert f"cuembed_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names

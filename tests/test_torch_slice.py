@@ -161,11 +161,26 @@ def test_from_torch_embedding_bag(mode):
         EmbeddingBag.from_torch(torch.nn.EmbeddingBag(V, W, mode="max"))
 
 
-def test_module_forward_needs_no_grad():
-    """The parameter requires grad; this slice's lookup is forward only."""
-    bag = EmbeddingBag(20, 4, device="cpu")
-    idx = torch.zeros((2, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        bag(idx)
-    with torch.inference_mode():
-        assert bag(idx).shape == (2, 4)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_module_sgd_steps_match_jax(mode):
+    """A few EmbeddingBag + torch.optim.SGD steps on the CPU take the table
+    where the same steps with jax.grad take the JAX package's table."""
+    rng = np.random.default_rng(9)
+    table = rng.uniform(-0.5, 0.5, (V, W)).astype(np.float32)
+    batches = [rng.integers(0, V, (B, H)) for _ in range(3)]
+    lr = 0.05
+
+    bag = EmbeddingBag.from_numpy(table, mode=CombineMode(mode), device="cpu")
+    opt = torch.optim.SGD(bag.parameters(), lr=lr)
+    jbag = JaxBag(V, W, mode=JMode(mode), layout="raw")
+    jtable = jnp.asarray(table)
+    loss = lambda out: (out ** 2).sum()  # noqa: E731
+    for idx in batches:
+        opt.zero_grad()
+        loss(bag(torch.from_numpy(idx))).backward()
+        opt.step()
+        g = jax.grad(lambda t: loss(jbag.apply(t, jnp.asarray(idx.astype(np.int32)))))(jtable)
+        jtable = jtable - lr * g
+    # Sums of up to B * H rows in two orders, three steps: fp32 tolerance.
+    np.testing.assert_allclose(bag.export_table(), np.asarray(jtable),
+                               rtol=1e-5, atol=1e-6)
