@@ -7,8 +7,10 @@ Phases, each of which fails the run (nonzero exit) on any fault:
 
 1. The card: name, count, and ``nvidia-smi``'s name and power limit.
 2. The build: ``csrc/forward.cu`` and ``csrc/backward.cu`` compiled from
-   this checkout, with the build time and ptxas's register and spill counts
-   for K1, K2 and K3.
+   this checkout, with the build time and ptxas's register, spill and
+   static shared-memory counts for K1, K2 and K3, and K3's launch shape at
+   the flagship calls (dynamic shared memory per block, threads, resident
+   blocks per SM).
 3. Parity grids on the card. K1 (fixed-hotness) and K2 (CSR) against their
    plain PyTorch versions over the shapes of tests/test_parity_bitwise.py,
    fp32/fp16/bf16 tables with and without low-precision math, int32/int64
@@ -16,12 +18,16 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    capacity padding: integer-exact tables bit for bit, random reals at fp32
    rtol = atol = 1e-5 and fp16/bf16 at one ulp of the output. K3 (the
    sorted-COO backward) against its plain version over the shapes of
-   tests/test_pallas_backward.py, widths 2, 36 and 514, a run over more than
-   three chunks and an empty COO, for fp32/fp16/bf16 grad_y, int32/int64
-   indices, with and without weights, full and compressed, with sentinel
-   padding, an nnz prefix and an initial gradient: integer-exact data bit
-   for bit, random reals each within its recursive-sum bound of a float64
-   sum, and every case launched twice with the same bits.
+   tests/test_pallas_backward.py, widths 2, 36 and 514 (514 on K3's
+   column-slice path), a run over more than three tiles (so across ring
+   stages, a tile and several tiles), tiles of one-position runs and an
+   empty COO, for fp32/fp16/bf16 grad_y, int32/int64 indices, with and
+   without weights, full and compressed, with sentinel padding, an nnz
+   prefix and an initial gradient; and grad_y views offset by 2, 4 and 8
+   bytes, so that each of K3's copy routes (bulk, cp.async of 8 and 4
+   bytes, plain 2-byte loads) launches: integer-exact data bit for bit,
+   random reals each within its recursive-sum bound of a float64 sum, and
+   every case launched twice with the same bits.
 4. The serving path, with every kernel's launch count set to 0 first and
    read after, and the plain versions made to raise if anything calls them:
    the flagship fixed request (10M x 256 fp16 table, batch 65536, hotness
@@ -44,8 +50,9 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    integer-valued grad_y, bit for bit against its plain version.
 6. K3 timed at the flagship batch (full mode into a zeroed buffer,
    compressed mode, CSR) beside its plain version, ``F.embedding_bag``'s
-   backward and its bound; the transpose; a dense step and an AdaGrad step
-   end to end, each with a ``torch.profiler`` breakdown of device time.
+   backward, its bound and the first design's times (PR 2, from PERF.md);
+   the transpose; a dense step and an AdaGrad step end to end, each with a
+   ``torch.profiler`` breakdown of device time.
 7. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -104,13 +112,22 @@ HBM_PEAK = "3.35 TB/s (H100 SXM data sheet)"
 COMPARE_ROWS = 8192  # batch rows per comparison chunk
 # (batch, hotness, num_categories, width) of the backward grid: the shapes
 # of tests/test_pallas_backward.py, widths 2, 36 and 514, a run longer than
-# three chunks (the last shape's first LONG_RUN positions share one index),
-# and an empty COO.
+# three tiles (the first LONG_RUN positions of a COO longer than that share
+# one index), two tiles of one-position runs, and an empty COO.
 BWD_SHAPES = [
     (32, 8, 200, 128), (13, 5, 67, 256), (64, 3, 40, 128), (40, 6, 300, 2),
     (40, 6, 300, 36), (17, 5, 90, 514), (64, 20, 500, 64), (4, 0, 50, 128),
+    (64, 8, 1_000_000, 256),
 ]
-LONG_RUN = 3 * cuda_backward.CHUNK + 50
+LONG_RUN = 3 * cuda_backward.TILE + 50
+# K3's copy routes off the aligned one (bulk): (grad_y dtype, byte offset of
+# its view), run at BWD_ROUTE_SHAPES; the aligned grid covers the bulk route.
+BWD_ROUTES = [(torch.float32, 8), (torch.float32, 4), (torch.bfloat16, 8),
+              (torch.bfloat16, 4), (torch.float16, 2)]
+BWD_ROUTE_SHAPES = [(64, 20, 500, 256), (17, 5, 90, 514)]
+# K3's times in its first design (PERF.md, PR 2's final run on an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's.
+PR2_K3_MS = {"full": 2.0744, "dense": 1.1978, "compressed": 2.9281, "csr": 1.2157}
 BWD_PAD = 7  # sentinel entries past the live positions
 # Significand bits (with the implicit one) of each storage type.
 BITS = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}
@@ -230,17 +247,21 @@ def phase_build():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = m.group(1)
-            kernels[current] = {"regs": None, "spill": 0}
+            kernels[current] = {"regs": None, "spill": 0, "smem": 0}
         elif current and (m := re.search(r"Used (\d+) registers", line)):
             kernels[current]["regs"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                kernels[current]["smem"] = int(m.group(1))
         elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             kernels[current]["spill"] = int(m.group(1)) + int(m.group(2))
-    # The flagship instantiations: fp16 rows (forward) or fp32 grad_y rows
-    # (backward), int64 ids, 16-byte loads.
-    for family, flagship in (("fixed_forward_kernel", "I6__halfl"),
-                             ("csr_forward_kernel", "I6__halfl"),
-                             ("coo_backward_kernel", "Ifl"),
-                             ("coo_backward_fixup_kernel", "Ifl"),
+    # The flagship instantiations: fp16 rows (forward) or fp32 and bf16
+    # grad_y rows (backward), int64 ids, 16-byte loads.
+    bwd = ("Ifl", "I13__nv_bfloat16l")
+    flagship_spills = 0
+    for family, flagship in (("fixed_forward_kernel", ("I6__halfl",)),
+                             ("csr_forward_kernel", ("I6__halfl",)),
+                             ("coo_backward_kernel", bwd),
+                             ("coo_backward_fixup_kernel", bwd),
                              ("run_count_kernel", None), ("run_scan_kernel", None)):
         mine = {k: v for k, v in kernels.items() if f"{len(family)}{family}" in k}
         if not mine:
@@ -250,8 +271,27 @@ def phase_build():
         print(f"[build] {family}: {len(mine)} instantiations, registers "
               f"{min(regs)}..{max(regs)}, spill bytes {spills}")
         for name, v in mine.items():
-            if flagship is None or (flagship in name and "Li16E" in name):
-                print(f"[build]   {name}: {v['regs']} registers, {v['spill']} spill bytes")
+            if flagship is None or (any(f in name for f in flagship) and "Li16E" in name):
+                print(f"[build]   {name}: {v['regs']} registers, {v['spill']} spill bytes, "
+                      f"{v['smem']} bytes static shared memory")
+                if family == "coo_backward_kernel":
+                    flagship_spills += v["spill"]
+    if flagship_spills:
+        raise SystemExit(f"[build] K3's flagship instantiations spill {flagship_spills} bytes")
+    # K3's shared memory is dynamic: the ring of grad_y rows (and of old
+    # rows in full mode, unless the output was zeroed here), its barriers
+    # and the tile's COO.
+    for label, dtype, kw in (("fp32 full", torch.float32, {}),
+                             ("fp32 full, zeroed output", torch.float32, {"zeroed": True}),
+                             ("fp32 compressed", torch.float32, {"compressed": True}),
+                             ("bf16 full, zeroed output (the dense step)", torch.bfloat16,
+                              {"zeroed": True}),
+                             ("fp32 full, weighted (CSR)", torch.float32, {"weighted": True})):
+        shape = cuda_backward.launch_shape(dtype, WIDTH, **kw)
+        print(f"[build] K3 at width {WIDTH}, {label}: {shape['smem_bytes']} bytes dynamic "
+              f"shared memory a block, {shape['threads']} threads, "
+              f"{shape['blocks_per_sm']} blocks resident per SM, {shape['slices']} column "
+              f"slice(s) a row")
 
 
 def grid_problem(gen, batch, width, hotness, dtype, vmax, integer, csr, index_dtype,
@@ -392,13 +432,24 @@ def check_full_grad(name, got, init, uniq, exact, mass, count, sum_bits):
     return ratio
 
 
+def shifted(t, shift_bytes):
+    """``t`` copied into a view that starts ``shift_bytes`` into its
+    storage: a narrower alignment for K3's copy route."""
+    shift = shift_bytes // t.element_size()
+    base = torch.zeros(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = base[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def backward_problem(gen, batch, hotness, V, width, dtype, index_dtype, weighted,
-                     integer, long_run):
+                     integer, long_run, shift=0):
     """An index-sorted COO of a fixed-hotness batch with BWD_PAD sentinel
-    entries, grad_y rows, weights and an initial gradient. Integer-exact
-    data keeps every partial sum exact in fp32 and in the half types
-    (values in {-1, 0, 1}, seven in eight of them 0 for fp16/bf16, weights
-    in {0.5, 1}); otherwise normal reals and U(0, 1) weights."""
+    entries, grad_y rows (a view ``shift`` bytes into its storage), weights
+    and an initial gradient. Integer-exact data keeps every partial sum
+    exact in fp32 and in the half types (values in {-1, 0, 1}, seven in
+    eight of them 0 for fp16/bf16, weights in {0.5, 1}); otherwise normal
+    reals and U(0, 1) weights."""
     n = batch * hotness
     idx = torch.randint(0, V, (n,), device="cuda", generator=gen)
     idx[:long_run] = V // 2
@@ -419,94 +470,106 @@ def backward_problem(gen, batch, hotness, V, width, dtype, index_dtype, weighted
         gy = torch.randn((batch, width), device="cuda", generator=gen)
         init = torch.randn((V, width), device="cuda", generator=gen)
         w = torch.rand(t_idx.shape, device="cuda", generator=gen)
-    return gy.to(dtype), t_idx, t_sid, w if weighted else None, init.to(dtype)
+    return shifted(gy.to(dtype), shift), t_idx, t_sid, w if weighted else None, init.to(dtype)
 
 
 def phase_backward_grid():
     """K3 against its plain version over the backward grid, full and
     compressed, with sentinel padding, an nnz prefix and an initial
-    gradient. Integer-exact data: bit for bit. Random reals: each within
-    its recursive-sum bound of a float64 sum (K3 sums in fp32, the plain
-    version in grad_y's type). Every case launches K3 twice and needs the
-    same bits both times."""
+    gradient, and on misaligned grad_y views (BWD_ROUTES). Integer-exact
+    data: bit for bit. Random reals: each within its recursive-sum bound of
+    a float64 sum (K3 sums in fp32, the plain version in grad_y's type).
+    Every case launches K3 twice and needs the same bits both times, and
+    every copy route must have launched."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    cases, failures = 0, []
+    cases, failures, routes, slices = 0, [], {}, 1
     worst = {"bitwise": 0.0, "k3 bound": 0.0, "plain bound": 0.0}
-    for batch, hotness, V, width in BWD_SHAPES:
+    specs = [(shape, dtype, 0) for shape in BWD_SHAPES
+             for dtype in (torch.float32, torch.float16, torch.bfloat16)]
+    specs += [(shape, dtype, shift) for shape in BWD_ROUTE_SHAPES
+              for dtype, shift in BWD_ROUTES]
+    for ((batch, hotness, V, width), dtype, shift), index_dtype, weighted, integer in (
+            itertools.product(specs, (torch.int32, torch.int64), (False, True), (True, False))):
         long_run = LONG_RUN if batch * hotness > LONG_RUN else 0
-        for dtype in (torch.float32, torch.float16, torch.bfloat16):
-            for index_dtype in (torch.int32, torch.int64):
-                for weighted in (False, True):
-                    for integer in (True, False):
-                        gy, t_idx, t_sid, w, init = backward_problem(
-                            gen, batch, hotness, V, width, dtype, index_dtype, weighted,
-                            integer, long_run)
-                        n = batch * hotness
-                        variants = [("full", None, None), ("prefix", max(n - 5, 0), None),
-                                    ("init", n, init)]
-                        variants += [("compressed", None, "c"),
-                                     ("compressed prefix", max(n - 5, 0), "c")]
-                        for label, nnz, extra in variants:
-                            cases += 1
-                            compressed = extra == "c"
-                            start = None if compressed or extra is None else extra
-                            live = t_idx.shape[0] if nnz is None else nnz
-                            if compressed:
-                                runs = [cuda_backward.embedding_backward_cuda_compressed(
-                                    gy, t_idx, t_sid, w, nnz=nnz) for _ in range(2)]
-                                want = plain_bwd_c(gy, t_idx, t_sid, w, nnz=nnz)
-                                got, again = runs[0].rows, runs[1].rows
-                                ok = (torch.equal(got, again)
-                                      and int(runs[0].num_unique) == int(want.num_unique)
-                                      and torch.equal(runs[0].unique_indices,
-                                                      want.unique_indices))
-                                want = want.rows
-                            else:
-                                got, again = (cuda_backward.embedding_backward_cuda(
-                                    gy, V, t_idx, t_sid, w, nnz=nnz,
-                                    initial_grad=None if start is None else start.clone())
-                                    for _ in range(2))
-                                want = plain_bwd(gy, V, t_idx, t_sid, w, nnz=nnz,
-                                                 initial_grad=None if start is None
-                                                 else start.clone())
-                                ok = torch.equal(got, again)
-                            if integer:
-                                err = max_abs_err(got, want)
-                                worst["bitwise"] = max(worst["bitwise"], err)
-                                ok = ok and torch.equal(got, want)
-                            else:
-                                uniq, exact, mass, count = float64_runs(
-                                    gy, t_idx, t_sid, w, live, None if compressed else V)
-                                if compressed:
-                                    nu = uniq.numel()
-                                    k3 = sum_error_ratio(got[:nu], exact, mass, count, 24)
-                                    pl = sum_error_ratio(want[:nu], exact, mass, count,
-                                                         BITS[dtype])
-                                    ok = ok and not got[nu:].any()
-                                else:
-                                    try:
-                                        k3 = check_full_grad("grid", got, start, uniq, exact,
-                                                             mass, count, 24)
-                                        pl = check_full_grad("grid", want, start, uniq,
-                                                             exact, mass, count, BITS[dtype])
-                                    except SystemExit:
-                                        k3 = pl = float("inf")
-                                worst["k3 bound"] = max(worst["k3 bound"], k3)
-                                worst["plain bound"] = max(worst["plain bound"], pl)
-                                ok = ok and k3 <= 1 and pl <= 1
-                            torch.cuda.synchronize()
-                            if not ok:
-                                failures.append((batch, hotness, V, width, str(dtype),
-                                                 str(index_dtype), weighted, integer, label))
+        gy, t_idx, t_sid, w, init = backward_problem(
+            gen, batch, hotness, V, width, dtype, index_dtype, weighted,
+            integer, long_run, shift)
+        if batch * hotness:
+            vec = cuda_backward.vec_bytes(gy, init)
+            route = cuda_backward.ROUTES[vec]
+            routes[route] = routes.get(route, 0) + 1
+            slices = max(slices, cuda_backward.launch_shape(
+                dtype, width, vec=vec)["slices"])
+        n = batch * hotness
+        variants = [("full", None, None), ("prefix", max(n - 5, 0), None),
+                    ("init", n, init)]
+        variants += [("compressed", None, "c"),
+                     ("compressed prefix", max(n - 5, 0), "c")]
+        for label, nnz, extra in variants:
+            cases += 1
+            compressed = extra == "c"
+            start = None if compressed or extra is None else extra
+            live = t_idx.shape[0] if nnz is None else nnz
+            if compressed:
+                runs = [cuda_backward.embedding_backward_cuda_compressed(
+                    gy, t_idx, t_sid, w, nnz=nnz) for _ in range(2)]
+                want = plain_bwd_c(gy, t_idx, t_sid, w, nnz=nnz)
+                got, again = runs[0].rows, runs[1].rows
+                ok = (torch.equal(got, again)
+                      and int(runs[0].num_unique) == int(want.num_unique)
+                      and torch.equal(runs[0].unique_indices,
+                                      want.unique_indices))
+                want = want.rows
+            else:
+                got, again = (cuda_backward.embedding_backward_cuda(
+                    gy, V, t_idx, t_sid, w, nnz=nnz,
+                    initial_grad=None if start is None else start.clone())
+                    for _ in range(2))
+                want = plain_bwd(gy, V, t_idx, t_sid, w, nnz=nnz,
+                                 initial_grad=None if start is None
+                                 else start.clone())
+                ok = torch.equal(got, again)
+            if integer:
+                err = max_abs_err(got, want)
+                worst["bitwise"] = max(worst["bitwise"], err)
+                ok = ok and torch.equal(got, want)
+            else:
+                uniq, exact, mass, count = float64_runs(
+                    gy, t_idx, t_sid, w, live, None if compressed else V)
+                if compressed:
+                    nu = uniq.numel()
+                    k3 = sum_error_ratio(got[:nu], exact, mass, count, 24)
+                    pl = sum_error_ratio(want[:nu], exact, mass, count,
+                                         BITS[dtype])
+                    ok = ok and not got[nu:].any()
+                else:
+                    try:
+                        k3 = check_full_grad("grid", got, start, uniq, exact,
+                                             mass, count, 24)
+                        pl = check_full_grad("grid", want, start, uniq,
+                                             exact, mass, count, BITS[dtype])
+                    except SystemExit:
+                        k3 = pl = float("inf")
+                worst["k3 bound"] = max(worst["k3 bound"], k3)
+                worst["plain bound"] = max(worst["plain bound"], pl)
+                ok = ok and k3 <= 1 and pl <= 1
+            torch.cuda.synchronize()
+            if not ok:
+                failures.append((batch, hotness, V, width, str(dtype), shift,
+                                 str(index_dtype), weighted, integer, label))
     print(f"[backward grid] {cases} cases, each launched twice with the same bits: "
           f"max |K3 - plain| {worst['bitwise']} on integer-exact data (bitwise); on "
           f"random reals the worst error over its recursive-sum bound is "
           f"{worst['k3 bound']:.3g} for K3 (fp32 sums) and {worst['plain bound']:.3g} for "
           f"the plain version (sums in grad_y's type); at most 1 passes")
+    print(f"[backward grid] problems by K3's copy route: {routes}; up to {slices} column "
+          f"slices a row")
     for f in failures[:20]:
         print(f"[backward grid] MISMATCH {f}")
     if failures:
         raise SystemExit(f"[backward grid] {len(failures)} of {cases} cases disagree")
+    if set(routes) != set(cuda_backward.ROUTES.values()) or slices < 3:
+        raise SystemExit(f"[backward grid] not every copy route or slice count ran: {routes}")
     return worst["bitwise"]
 
 
@@ -516,7 +579,7 @@ def flagship_exact(idx, flat, offsets, gen):
     mode, each launched twice. grad_y is integer-valued fp32 with |g| <= 8
     and the CSR coefficients are 0.5 or 1, so every partial sum of a run is
     a multiple of 0.5 below 2^22 and exact in fp32, whatever the order:
-    both must give the same bits, the fix-up of the runs that cross chunk
+    both must give the same bits, the fix-up of the runs that cross tile
     edges included. Returns max |K3 - plain| (0 when it passes)."""
     kb, kc = cuda_backward.embedding_backward_cuda, cuda_backward.embedding_backward_cuda_compressed
     nnz = int(offsets[-1])
@@ -550,8 +613,8 @@ def flagship_exact(idx, flat, offsets, gen):
         del got, again, want, gy
         torch.cuda.empty_cache()
         print(f"[{name} exact] {live} sorted positions in {runs.numel()} runs, the "
-              f"longest {longest} ({-(-longest // cuda_backward.CHUNK)} chunks), "
-              f"{int((runs > cuda_backward.CHUNK).sum())} longer than a chunk; integer "
+              f"longest {longest} ({-(-longest // cuda_backward.TILE)} tiles), "
+              f"{int((runs > cuda_backward.TILE).sum())} longer than a tile; integer "
               f"grad_y: max |K3 - plain| {full_err} (full), {comp_err} (compressed); "
               f"two launches {'equal' if same else 'DIFFERENT'}")
         if not (full_ok and comp_ok):
@@ -858,7 +921,8 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
     app = bench.backward_app_bytes(nnz=live, batch=BATCH, width=WIDTH, num_unique=nu,
                                    elem_bytes=4, index_bytes=8)
     print(f"[K3 full] fixed flagship (fp32 grad_y [{BATCH}, {WIDTH}], {live} sorted "
-          f"positions, {nu} distinct rows): kernel {k:.4f} ms into a zeroed buffer, "
+          f"positions, {nu} distinct rows): kernel {k:.4f} ms into a zeroed buffer "
+          f"(PR 2: {PR2_K3_MS['full']} ms), "
           f"{app / k / 1e6:.1f} app GB/s; plain {p:.4f} ms; F.embedding_bag backward "
           f"{lib:.4f} ms (with its own zeroed output); zeroing the [{V}, {WIDTH}] fp32 "
           f"gradient alone {zero:.4f} ms; bound {bound['bound_ms']:.4f} ms "
@@ -876,7 +940,8 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
                                   live=live, index_bytes=8, num_unique=nu, weighted=False,
                                   compressed=False)
     print(f"[K3 full] the dense step's call ({gy.dtype} grad_y and gradient): kernel "
-          f"{khalf:.4f} ms; bound {hbound['bound_ms']:.4f} ms ({hbound['bytes']} bytes), "
+          f"{khalf:.4f} ms (PR 2: {PR2_K3_MS['dense']} ms); bound "
+          f"{hbound['bound_ms']:.4f} ms ({hbound['bytes']} bytes), "
           f"kernel at {hbound['bound_ms'] / khalf:.1%} of the bound")
 
     # Compressed mode, checked at this size against float64 sums.
@@ -894,7 +959,8 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
     pcm = bench.cuda_time_ms(lambda: plain_bwd_c(gy32, t_idx, t_sid), warmup=1, iters=3)
     pad = live * WIDTH * 4 / bench.H100_HBM_BYTES_PER_S * 1e3
     print(f"[K3 compressed] fixed flagship: kernel {kcm:.4f} ms (with the zeroed "
-          f"[{live}, {WIDTH}] fp32 output it fills); plain {pcm:.4f} ms; bound "
+          f"[{live}, {WIDTH}] fp32 output it fills; PR 2: {PR2_K3_MS['compressed']} ms); "
+          f"plain {pcm:.4f} ms; bound "
           f"{cbound['bound_ms']:.4f} ms for the touched rows ({cbound['bytes']} bytes), "
           f"{cbound['bound_ms'] + pad:.4f} ms with the zero padding; error/bound "
           f"against float64 sums {ratio:.3g}")
@@ -911,7 +977,7 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
                                      index_bytes=8, num_unique=cnu, weighted=True,
                                      compressed=False)
     print(f"[K3 full] CSR weighted flagship (nnz {nnz}, {cnu} distinct rows): kernel "
-          f"{kcsr:.4f} ms; bound {csr_bound['bound_ms']:.4f} ms "
+          f"{kcsr:.4f} ms (PR 2: {PR2_K3_MS['csr']} ms); bound {csr_bound['bound_ms']:.4f} ms "
           f"({csr_bound['bytes']} bytes), kernel at {csr_bound['bound_ms'] / kcsr:.1%}")
 
     # The transpose: torch.sort by index (stable), and the general two-key

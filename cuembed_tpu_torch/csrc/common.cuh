@@ -89,7 +89,7 @@ struct Vec {
 };
 
 // Block shape for rows of `nvec` vectors: up to kThreads lanes across the
-// row, and as many rows of threads (samples, or chunks) as fill kThreads.
+// row, and as many rows of threads (samples) as fill kThreads.
 inline dim3 block_shape(int64_t nvec) {
   int tx = 1;
   if (nvec >= 32) {

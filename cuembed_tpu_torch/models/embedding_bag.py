@@ -17,21 +17,11 @@ import torch
 from torch import nn
 
 from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
-from cuembed_tpu_torch.types import STORAGE_DTYPES, CombineMode
+from cuembed_tpu_torch.types import STORAGE_DTYPES, CombineMode, default_device
+
+__all__ = ["EmbeddingBag", "default_device"]
 
 _TORCH_MODES = {"sum": CombineMode.SUM, "mean": CombineMode.MEAN}
-
-
-def default_device(device: torch.device | str | None) -> torch.device:
-    """``device``, or the CUDA device when none is given. Without a card an
-    explicit device is required: nothing falls back to the CPU silently."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to build on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def _numpy_table(arr) -> tuple[np.ndarray, torch.dtype]:

@@ -131,9 +131,17 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr,  # grad_y, t_idx, t_sid, coeff
         ptr, ptr, ptr, ptr,  # out, uniq, head, tail
         ptr, ptr, ptr,  # ranks, tail_rank, num_unique
-        i64, i64, i64, i64, i64,  # num_rows, gy_rows, live, width, chunk
-        i32, i32, i32, i32,  # dtype, index_bytes, vec_bytes, compressed
+        i64, i64, i64, i64,  # num_rows, gy_rows, live, width
+        i32, i32, i32, i32, i32,  # dtype, index_bytes, vec_bytes, compressed, zeroed
         ptr,  # stream
     ]
     lib.cuembed_coo_backward.restype = i32
+    lib.cuembed_coo_backward_tile.argtypes = []
+    lib.cuembed_coo_backward_tile.restype = i32
+    lib.cuembed_coo_backward_shape.argtypes = [
+        i64, i32, i32, i32,  # width, dtype, index_bytes, has_w
+        i32, i32, i32,  # vec_bytes, compressed, zeroed
+        ptr,  # shape: int64[4]
+    ]
+    lib.cuembed_coo_backward_shape.restype = i32
     return lib

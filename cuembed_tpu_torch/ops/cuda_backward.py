@@ -29,7 +29,6 @@ from cuembed_tpu_torch.ops.cuda_forward import (
     _DTYPE_CODE,
     _check_placement,
     _raise_on_error,
-    _vec_bytes,
 )
 from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
@@ -38,8 +37,12 @@ from cuembed_tpu_torch.ops.lookup_torch import (
 )
 from cuembed_tpu_torch.types import INDEX_DTYPES, STORAGE_DTYPES
 
-# Sorted positions per chunk: one row of threads sums a chunk's runs.
-CHUNK = 256
+# Sorted positions per tile: one block stages a tile's COO in shared memory
+# and sums its runs (``kTile`` in ``csrc/backward.cu``).
+TILE = 256
+# The copy route of each row vector width: one bulk copy per row slice
+# (16 bytes), cp.async of each column vector (8, 4 bytes), plain loads (2).
+ROUTES = {16: "bulk", 8: "cp.async 8 B", 4: "cp.async 4 B", 2: "plain 2 B"}
 
 
 def _check_coo(grad_y, t_idx, t_sid, t_w):
@@ -56,25 +59,57 @@ def _check_coo(grad_y, t_idx, t_sid, t_w):
         raise ValueError("transpose_weights must be float32 like the indices")
 
 
+def vec_bytes(grad_y: torch.Tensor, out: torch.Tensor) -> int:
+    """The widest row vector (16, 8 or 4 bytes, else one element) that
+    divides the row stride and the ``grad_y`` and output pointers; it picks
+    K3's copy route (:data:`ROUTES`)."""
+    row = grad_y.shape[1] * grad_y.element_size()
+    for vec in (16, 8, 4):
+        if row % vec == 0 and grad_y.data_ptr() % vec == 0 and out.data_ptr() % vec == 0:
+            return vec
+    return grad_y.element_size()
+
+
+def launch_shape(dtype: torch.dtype, width: int, *, index_bytes: int = 8,
+                 weighted: bool = False, vec: int = 16, compressed: bool = False,
+                 zeroed: bool = False) -> dict:
+    """K3's launch shape for such a call, from the built library: dynamic
+    shared memory per block, threads per block, resident blocks per SM on
+    the current card, and column slices a row (one block each)."""
+    shape = torch.zeros(4, dtype=torch.int64)
+    err = _build.load_library().cuembed_coo_backward_shape(
+        width, _DTYPE_CODE[dtype], index_bytes, int(weighted), vec, int(compressed),
+        int(zeroed), shape.data_ptr())
+    _raise_on_error(err, "coo_backward_kernel")
+    smem, threads, blocks, slices = shape.tolist()
+    return {"smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
+            "slices": slices}
+
+
 def _live(nnz, cap: int) -> int:
     return cap if nnz is None else max(0, min(int(nnz), cap))
 
 
-def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed):
+def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed,
+            zeroed=False):
     """K3 over the first ``live`` sorted positions; returns num_unique (a
-    0-dim int64 tensor) in compressed mode."""
+    0-dim int64 tensor) in compressed mode. ``zeroed``: full mode into an
+    output this module zeroed, whose old rows K3 need not read."""
     width = grad_y.shape[1]
-    num_chunks = -(-live // CHUNK)
+    num_tiles = -(-live // TILE)
     device = grad_y.device
-    head = torch.empty((num_chunks, width), dtype=torch.float32, device=device)
+    head = torch.empty((num_tiles, width), dtype=torch.float32, device=device)
     tail = torch.empty_like(head)
     ranks = tail_rank = num_unique = None
     if compressed:
-        ranks = torch.empty(num_chunks, dtype=torch.int64, device=device)
+        ranks = torch.empty(num_tiles, dtype=torch.int64, device=device)
         tail_rank = torch.empty_like(ranks)
         num_unique = torch.empty((), dtype=torch.int64, device=device)
     t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
     lib = _build.load_library()
+    if lib.cuembed_coo_backward_tile() != TILE:
+        raise RuntimeError(f"K3 was built for tiles of {lib.cuembed_coo_backward_tile()} "
+                           f"positions, the wrapper sizes its scratch for {TILE}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -84,9 +119,9 @@ def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed):
             grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
             out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
             ptr(ranks), ptr(tail_rank), ptr(num_unique),
-            num_rows, grad_y.shape[0], live, width, CHUNK,
+            num_rows, grad_y.shape[0], live, width,
             _DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
-            _vec_bytes(width, grad_y.element_size(), grad_y, out), int(compressed),
+            vec_bytes(grad_y, out), int(compressed), int(zeroed),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(err, "coo_backward_kernel")
@@ -133,7 +168,7 @@ def embedding_backward_cuda(
     if live == 0 or grad_y.shape[1] == 0:
         return out
     _launch(grad_y, transpose_indices, transpose_sample_ids, transpose_weights, out,
-            None, live, num_categories, compressed=False)
+            None, live, num_categories, compressed=False, zeroed=initial_grad is None)
     embedding_backward_cuda.launches += 1
     return out
 

@@ -30,7 +30,7 @@ from cuembed_tpu_torch.ops.transforms import (
     extract_row_ids_from_csr,
     transpose_position_ordered,
 )
-from cuembed_tpu_torch.types import CombineMode
+from cuembed_tpu_torch.types import CombineMode, default_device
 
 
 def embedding_grad_y(loss_fn, pooled, *args, **kwargs) -> torch.Tensor:
@@ -133,8 +133,10 @@ def sgd_sparse_update(
 
 
 def rowwise_adagrad_init(num_categories: int, *, device=None) -> torch.Tensor:
-    """Per-row accumulator state (fp32), one scalar per table row."""
-    return torch.zeros((num_categories,), dtype=torch.float32, device=device)
+    """Per-row accumulator state (fp32), one scalar per table row, on
+    ``device`` or, when none is given, on the card (raises without one)."""
+    return torch.zeros((num_categories,), dtype=torch.float32,
+                       device=default_device(device))
 
 
 @torch.no_grad()
@@ -175,7 +177,9 @@ def rowwise_adagrad_sparse_update(
 
 
 def adam_init(num_categories: int, width: int, *, device=None):
-    """Per-element Adam moments ``(m, v)``, fp32, zero-initialized."""
+    """Per-element Adam moments ``(m, v)``, fp32, zero-initialized, on
+    ``device`` or, when none is given, on the card (raises without one)."""
+    device = default_device(device)
     return (torch.zeros((num_categories, width), dtype=torch.float32, device=device),
             torch.zeros((num_categories, width), dtype=torch.float32, device=device))
 

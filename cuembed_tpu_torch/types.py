@@ -51,6 +51,18 @@ def accumulation_dtype(
     return storage_dtype
 
 
+def default_device(device: torch.device | str | None) -> torch.device:
+    """``device``, or the CUDA device when none is given. Without a card an
+    explicit device is required: nothing falls back to the CPU silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to build on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def check_index_dtype(dtype: torch.dtype) -> torch.dtype:
     """Return ``dtype`` if indices of that dtype are supported, else raise."""
     if dtype not in INDEX_DTYPES:

@@ -71,7 +71,8 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
     leaf = table.clone().requires_grad_()
     tce.embedding_lookup(leaf, idx).sum().backward()
     tce.embedding_lookup_csr(leaf, flat, offsets).sum().backward()
-    tce.rowwise_adagrad_sparse_update(table.clone(), tce.rowwise_adagrad_init(50), idx,
+    tce.rowwise_adagrad_sparse_update(table.clone(), tce.rowwise_adagrad_init(50, device="cpu"),
+                                      idx,
                                       torch.ones((6, 12)), lr=0.1)
     assert leaf.grad is not None
     assert k3 == (cuda_backward.embedding_backward_cuda.launches,

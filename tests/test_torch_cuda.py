@@ -106,7 +106,7 @@ def test_misaligned_table_takes_a_narrower_load(gen, shift):
 
 def _sorted_coo(gen, n, V, rows, index_dtype, *, long_run=0, pad=0):
     """An index-sorted COO of n live entries (the first ``long_run`` share
-    one index, a run over several chunks) and ``pad`` sentinel entries."""
+    one index, a run over several tiles) and ``pad`` sentinel entries."""
     idx = torch.randint(0, V, (n,), device="cuda", generator=gen)
     idx[:long_run] = 7
     sid = torch.randint(0, rows, (n,), device="cuda", generator=gen)
@@ -123,7 +123,7 @@ def _integer_problem(gen, dtype, width, index_dtype, weighted, V=200, rows=64,
     seven in eight values are 0, so that the partial sums of the long run
     stay well inside bf16's 8 bits)."""
     t_idx, t_sid = _sorted_coo(gen, n, V, rows, index_dtype,
-                               long_run=3 * cuda_backward.CHUNK + 50, pad=pad)
+                               long_run=3 * cuda_backward.TILE + 50, pad=pad)
     gy = torch.randint(-1, 2, (rows, width), device="cuda", generator=gen)
     if dtype != torch.float32:
         gy *= torch.rand((rows, width), device="cuda", generator=gen) < 0.125
@@ -139,7 +139,7 @@ def _integer_problem(gen, dtype, width, index_dtype, weighted, V=200, rows=64,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_k3_full_equals_plain_version(gen, weighted, dtype, width):
-    """Bitwise on integer-exact data, with a run over three chunks, sentinel
+    """Bitwise on integer-exact data, with a run over three tiles, sentinel
     padding, an nnz prefix and an initial gradient."""
     V = 200
     for index_dtype in (torch.int32, torch.int64):
@@ -223,3 +223,97 @@ def test_half_table_gradient_skips_the_fp32_gradient(gen, mode, dtype):
     want = cuda_backward.embedding_backward_cuda(rows_in.float(), V, t_idx, t_sid).to(dtype)
     assert table.grad.dtype == dtype
     assert torch.equal(table.grad, want)
+
+
+def test_optimizer_state_defaults_to_the_card(gen):
+    assert tce.rowwise_adagrad_init(100).device.type == "cuda"
+    assert all(t.device.type == "cuda" for t in tce.adam_init(100, 8))
+
+
+def _shifted(gy, shift_bytes):
+    """``gy`` copied into a view that starts ``shift_bytes`` into its
+    storage, so that K3 must take a narrower copy route."""
+    shift = shift_bytes // gy.element_size()
+    base = torch.zeros(gy.numel() + shift, dtype=gy.dtype, device=gy.device)
+    view = base[shift:].view(gy.shape)
+    view.copy_(gy)
+    return view
+
+
+# (dtype, byte offset of grad_y, the copy route it takes at width 256).
+ROUTE_CASES = [
+    (torch.float32, 0, 16), (torch.float32, 8, 8), (torch.float32, 4, 4),
+    (torch.bfloat16, 0, 16), (torch.bfloat16, 8, 8), (torch.bfloat16, 4, 4),
+    (torch.float16, 2, 2),
+]
+
+
+@pytest.mark.parametrize("dtype,shift,route", ROUTE_CASES,
+                         ids=[f"{str(d)[6:]}-{cuda_backward.ROUTES[r]}" for d, _, r in ROUTE_CASES])
+def test_k3_copy_routes_equal_plain_version(gen, dtype, shift, route):
+    """Each copy route (bulk, cp.async 8 and 4 bytes, plain 2-byte loads),
+    picked by a misaligned grad_y view, in full mode (into a zeroed output
+    and into an initial gradient) and compressed mode: bit for bit on
+    integer-exact data, and two launches give the same bits."""
+    V, width = 200, 256
+    gy, t_idx, t_sid, w = _integer_problem(gen, dtype, width, torch.int64, True)
+    gy = _shifted(gy, shift)
+    init = torch.randint(-2, 3, (V, width), device="cuda", generator=gen).to(dtype)
+    assert cuda_backward.vec_bytes(gy, init) == route
+    for start in (None, init):
+        got = [cuda_backward.embedding_backward_cuda(
+            gy, V, t_idx, t_sid, w, initial_grad=None if start is None else start.clone())
+            for _ in range(2)]
+        want = embedding_backward_torch(gy, V, t_idx, t_sid, w,
+                                        initial_grad=None if start is None else start.clone())
+        assert torch.equal(got[0], got[1])
+        assert torch.equal(got[0], want)
+    got = [cuda_backward.embedding_backward_cuda_compressed(gy, t_idx, t_sid, w)
+           for _ in range(2)]
+    want = embedding_backward_compressed_torch(gy, t_idx, t_sid, w)
+    assert torch.equal(got[0].rows, got[1].rows)
+    assert torch.equal(got[0].rows, want.rows)
+    assert torch.equal(got[0].unique_indices, want.unique_indices)
+    assert int(got[0].num_unique) == int(want.num_unique)
+
+
+def _run_lengths_coo(lengths, rows, index_dtype, gen):
+    """A sorted COO whose runs have the given lengths, in order, over
+    indices 0, 1, 2, ..."""
+    lengths = torch.tensor(lengths, device="cuda")
+    t_idx = torch.repeat_interleave(torch.arange(lengths.numel(), device="cuda"), lengths)
+    t_sid = torch.randint(0, rows, t_idx.shape, device="cuda", generator=gen)
+    return t_idx.to(index_dtype), t_sid.to(torch.int32)
+
+
+@pytest.mark.parametrize("width", [64, 256, 514])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_runs_across_stages_and_tiles(gen, dtype, width):
+    """Runs that end on, before and after a ring stage's edge (8 positions)
+    and a tile's edge, runs over several tiles, and a whole tile of
+    one-position runs; full and compressed, bit for bit on integer-exact
+    data, two launches equal."""
+    T = cuda_backward.TILE
+    lengths = ([1] * T + [7, 8, 9, 1, 16, 17] + [T - 48, T, T + 1, 1, 3 * T + 5]
+               + [1] * (T + 3) + [2 * T - 1, 5])
+    V = len(lengths)
+    rows = 96
+    t_idx, t_sid = _run_lengths_coo(lengths, rows, torch.int32, gen)
+    gy = torch.randint(-1, 2, (rows, width), device="cuda", generator=gen)
+    if dtype != torch.float32:
+        gy *= torch.rand((rows, width), device="cuda", generator=gen) < 0.125
+    gy = gy.to(dtype)
+    w = torch.tensor([0.5, 1.0], device="cuda")[
+        torch.randint(0, 2, t_idx.shape, device="cuda", generator=gen)]
+    for coeff in (None, w):
+        got = [cuda_backward.embedding_backward_cuda(gy, V, t_idx, t_sid, coeff)
+               for _ in range(2)]
+        assert torch.equal(got[0], got[1])
+        assert torch.equal(got[0], embedding_backward_torch(gy, V, t_idx, t_sid, coeff))
+        c = [cuda_backward.embedding_backward_cuda_compressed(gy, t_idx, t_sid, coeff)
+             for _ in range(2)]
+        want = embedding_backward_compressed_torch(gy, t_idx, t_sid, coeff)
+        assert int(c[0].num_unique) == int(want.num_unique) == V
+        assert torch.equal(c[0].rows, c[1].rows)
+        assert torch.equal(c[0].rows, want.rows)
+        assert torch.equal(c[0].unique_indices, want.unique_indices)

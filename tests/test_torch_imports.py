@@ -1,4 +1,4 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port, chip_smoke.py and tools/ import neither JAX nor the JAX package.
 
 A static scan of the sources' import statements: the test process has JAX
 imported already (the JAX tests run in it), so a ``sys.modules`` check
@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "cuembed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "cuembed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -45,6 +46,6 @@ def test_scan_sees_the_port():
                    "train.py", "models/embedding_bag.py",
                    "utils/datagen.py", "utils/benchmarking.py"):
         assert f"cuembed_tpu_torch/{module}" in names
-    assert "chip_smoke.py" in names
+    assert "chip_smoke.py" in names and "tools/k3_sweep.py" in names
     assert _forbidden("jax.numpy") and _forbidden("cuembed_tpu.ops")
     assert not _forbidden("cuembed_tpu_torch.ops")

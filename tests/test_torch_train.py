@@ -103,7 +103,7 @@ def test_rowwise_adagrad_two_steps_match_jax(integer, layout, mode, dtype):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     jt, ja = jnp.asarray(table).astype(jdt), jtrain.rowwise_adagrad_init(V)
     t = torch.from_numpy(table.copy()).to(dtype)
-    a = tce.rowwise_adagrad_init(V)
+    a = tce.rowwise_adagrad_init(V, device="cpu")
     for step in range(2):
         g = gy * (step + 1)
         jt, ja = jtrain.rowwise_adagrad_sparse_update(
@@ -132,7 +132,7 @@ def test_lazy_adam_matches_jax(integer, layout, mode, dtype):
     jt = jnp.asarray(table).astype(jdt)
     jm, jv = jtrain.adam_init(V, W)
     t = torch.from_numpy(table.copy()).to(dtype)
-    m, v = tce.adam_init(V, W)
+    m, v = tce.adam_init(V, W, device="cpu")
     for step in (0, 2):
         jt, jm, jv = jtrain.adam_sparse_update(
             jt, jm, jv, step, lr=0.01, **_jargs(idx, offsets, weights, gy, mode))
@@ -189,7 +189,8 @@ def test_tiered_updates_not_ported():
     with pytest.raises(NotImplementedError, match="P7"):
         tce.sgd_sparse_update(*args, lr=0.1, tiered_cfg=object())
     with pytest.raises(NotImplementedError, match="P7"):
-        tce.rowwise_adagrad_sparse_update(args[0], tce.rowwise_adagrad_init(V), *args[1:],
+        tce.rowwise_adagrad_sparse_update(args[0], tce.rowwise_adagrad_init(V, device="cpu"),
+                                          *args[1:],
                                           lr=0.1, tiered_cfg=object())
 
 
@@ -198,3 +199,17 @@ def test_bf16_table_dtype_is_kept():
     t = torch.from_numpy(table.astype(ml_dtypes.bfloat16).astype(np.float32)).bfloat16()
     tce.sgd_sparse_update(t, torch.from_numpy(idx), torch.from_numpy(gy), lr=0.5)
     assert t.dtype == torch.bfloat16
+
+
+def test_state_needs_a_device_without_a_card():
+    """The optimizer state goes to the card unless a device is given, as
+    EmbeddingBag's table does; without a card that raises instead of
+    falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; tests/test_torch_cuda.py covers the default")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tce.rowwise_adagrad_init(V)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tce.adam_init(V, W)
+    assert tce.rowwise_adagrad_init(V, device="cpu").device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in tce.adam_init(V, W, device="cpu"))
