@@ -8,15 +8,20 @@ Phases, each of which fails the run (nonzero exit) on any fault:
 1. The card: name, count, and ``nvidia-smi``'s name and power limit.
 2. The build: ``csrc/forward.cu`` and ``csrc/backward.cu`` compiled from
    this checkout, with the build time and ptxas's register, spill and
-   static shared-memory counts for K1, K2 and K3, and K3's launch shape at
-   the flagship calls (dynamic shared memory per block, threads, resident
-   blocks per SM).
+   static shared-memory counts for K1, K2 and K3, and the launch shapes at
+   the flagship calls (registers, spills, shared memory per block,
+   threads, resident blocks per SM) of K1 and K2, as the wrappers plan
+   them, and of K3.
 3. Parity grids on the card. K1 (fixed-hotness) and K2 (CSR) against their
    plain PyTorch versions over the shapes of tests/test_parity_bitwise.py,
-   fp32/fp16/bf16 tables with and without low-precision math, int32/int64
-   indices and offsets, SUM, weighted SUM and MEAN, zero-hotness samples and
-   capacity padding: integer-exact tables bit for bit, random reals at fp32
-   rtol = atol = 1e-5 and fp16/bf16 at one ulp of the output. K3 (the
+   bags of 2100 and the flagship width at hotness 64 over a ragged last
+   block, fp32/fp16/bf16 tables with and without low-precision math,
+   int32/int64 indices and offsets, SUM, weighted SUM and MEAN, zero-hotness
+   samples and capacity padding: integer-exact tables bit for bit, random
+   reals at fp32 rtol = atol = 1e-5 and fp16/bf16 at one ulp of the output;
+   then their edges bit for bit (a zero-hotness batch, one CSR bag of 5000
+   holding most positions, every id on one row or four, table views that
+   take 8-byte and one-element loads). K3 (the
    sorted-COO backward) against its plain version over the shapes of
    tests/test_pallas_backward.py, widths 2, 36 and 514 (514 on K3's
    column-slice path), a run over more than three tiles (so across ring
@@ -97,10 +102,13 @@ from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
 NUM_ROWS, WIDTH, BATCH, HOTNESS, ALPHA = 10_000_000, 256, 65536, 64, 1.15
 # BASELINE.json config 1.
 SMALL_ROWS, SMALL_WIDTH, SMALL_BATCH, SMALL_HOTNESS = 100_000, 32, 1024, 8
-# (batch, width, hotness) of tests/test_parity_bitwise.py.
+# (batch, width, hotness) of tests/test_parity_bitwise.py, then bags far
+# longer than a worker's 32 staged positions, and the flagship width at
+# hotness 64 over a batch that leaves the last block's workers part idle.
 GRID_SHAPES = [
     (3, 2, 4), (7, 4, 1), (31, 8, 8), (129, 32, 26), (129, 36, 26),
     (65, 64, 17), (33, 128, 33), (3, 512, 63), (17, 514, 5), (255, 16, 2),
+    (2, 64, 2100), (257, 256, 64),
 ]
 # (storage dtype, low-precision math, max |value| of the integer-exact table).
 GRID_TYPES = [
@@ -128,6 +136,10 @@ BWD_ROUTE_SHAPES = [(64, 20, 500, 256), (17, 5, 90, 514)]
 # K3's times in its first design (PERF.md, PR 2's final run on an NVIDIA
 # H100 80GB HBM3 at 700 W), printed beside this run's.
 PR2_K3_MS = {"full": 2.0744, "dense": 1.1978, "compressed": 2.9281, "csr": 1.2157}
+# K1's and K2's times in their first design (PERF.md, PR 3's final run on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
+PR3_FWD_MS = {"fixed sum": 0.2586, "csr sum_w": 0.2248, "csr sum_w lpm": 0.2693,
+              "csr mean": 0.1980, "csr mean lpm": 0.2138, "config 1": 0.0065}
 BWD_PAD = 7  # sentinel entries past the live positions
 # Significand bits (with the implicit one) of each storage type.
 BITS = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}
@@ -242,6 +254,20 @@ def phase_build():
         raise SystemExit("[build] the log holds no time for each source")
     print(f"[build] one nvcc per source, started together: {m.group(1)}; one after "
           f"the other the compiles would take about their sum, {sum(per_source):.1f} s")
+    # K1's and K2's flagship launches, from the built library: fp16 rows of
+    # 256, int64 ids, 16-byte loads, as the wrappers plan them.
+    for label, kw in (("K1 fixed sum", {}),
+                      ("K2 csr sum_w", {"csr": True, "weighted": True}),
+                      ("K2 csr sum_w lpm", {"csr": True, "weighted": True,
+                                            "low_precision_math": True}),
+                      ("K2 csr mean", {"csr": True})):
+        shape = cuda_forward.launch_shape(torch.float16, WIDTH, BATCH, **kw)
+        print(f"[build] {label} at width {WIDTH} fp16: {shape['registers']} registers, "
+              f"{shape['spill_bytes']} spill bytes, {shape['smem_bytes']} bytes shared "
+              f"memory a block, {shape['threads']} threads ({shape['lanes']} lanes a "
+              f"worker), {shape['blocks_per_sm']} blocks resident per SM")
+        if shape["spill_bytes"]:
+            raise SystemExit(f"[build] {label}'s flagship instantiation spills")
     kernels, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -372,6 +398,81 @@ def phase_grid():
     if not np.array_equal(got.cpu().numpy().astype(np.float64), want):
         raise SystemExit("[grid] K1 disagrees with a float64 numpy sum")
     print("[grid] K1 equals a float64 numpy sum on a 9 x 11 integer problem")
+
+
+def phase_edges():
+    """K1 and K2 at the edges of their design, bit for bit against the plain
+    version on integer-exact tables of every grid type: a zero-hotness
+    batch; a CSR batch where one bag of 5000 holds most positions; every id
+    on one row, and on four, at width 256 and hotness 64; and table views 8
+    bytes and one element into their storage, so that the 8-byte and the
+    one-element loads launch (the 16-byte ones launch everywhere else)."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    cases, failures, loads = 0, [], set()
+
+    def check(label, table, idx, offsets, lpm, modes=("sum", "sum_w", "mean")):
+        nonlocal cases
+        for mode in modes:
+            w = (torch.tensor([0.5, 0.25], device="cuda")[
+                torch.randint(0, 2, idx.shape, device="cuda", generator=gen)]
+                if mode == "sum_w" else None)
+            m = tce.CombineMode(mode.removesuffix("_w"))
+            if offsets is None:
+                got = cuda_forward.embedding_forward_cuda(table, idx, w, mode=m,
+                                                          low_precision_math=lpm)
+            else:
+                got = cuda_forward.embedding_forward_cuda_csr(table, idx, offsets, w, mode=m,
+                                                              low_precision_math=lpm)
+            want = plain(table, idx, offsets, w, mode=m, low_precision_math=lpm)
+            cases += 1
+            if not torch.equal(got, want):
+                failures.append((label, str(table.dtype), lpm, mode, max_abs_err(got, want)))
+
+    for dtype, lpm, vmax in GRID_TYPES:
+        def table_of(rows, width, shift=0):
+            t = torch.randint(-vmax, vmax + 1, (rows * width + shift,), device="cuda",
+                              generator=gen).to(dtype)
+            view = t[shift:].view(rows, width)
+            loads.add(cuda_forward._vec_bytes(width, view.element_size(), view,
+                                              torch.empty_like(view[:1])))
+            return view
+        check("hotness 0", table_of(40, 256), torch.zeros((9, 0), dtype=torch.int64,
+                                                         device="cuda"), None, lpm,
+              ("sum", "sum_w"))
+        # Integer-exact under every type: a bag of 5000 adds values of at
+        # most vmax, 7 in 8 of them 0, so that its sums stay exact.
+        sparse = table_of(300, 64)
+        sparse *= (torch.rand(sparse.shape, device="cuda", generator=gen) < 0.125).to(dtype)
+        hots = torch.tensor([5000, 3, 0, 64, 1, 17], device="cuda")
+        offsets = torch.cat([hots.new_zeros(1), hots.cumsum(0)])
+        flat = torch.randint(0, 300, (int(offsets[-1]) + 4,), device="cuda", generator=gen)
+        check("one bag of 5000", sparse, flat, offsets, lpm)
+        wide = table_of(1000, 256)
+        for label, idx in (("one row", torch.full((70, 64), 617, device="cuda")),
+                           ("four rows", torch.randint(0, 4, (70, 64), device="cuda",
+                                                       generator=gen) * 211)):
+            small = wide * (torch.rand(wide.shape, device="cuda", generator=gen)
+                            < 0.125).to(dtype)
+            check(label, small, idx, None, lpm)
+            hots = torch.randint(0, 65, (70,), device="cuda", generator=gen)
+            check(f"{label} csr", small, idx.reshape(-1),
+                  torch.cat([hots.new_zeros(1), hots.cumsum(0)]), lpm)
+        for shift in (8 // (torch.finfo(dtype).bits // 8), 1):
+            idx = torch.randint(0, 200, (37, 19), device="cuda", generator=gen)
+            view = table_of(200, 256, shift)
+            check(f"view +{shift} elements", view, idx, None, lpm)
+            hots = torch.randint(0, 20, (37,), device="cuda", generator=gen)
+            check(f"view +{shift} elements csr", view, idx.reshape(-1),
+                  torch.cat([hots.new_zeros(1), hots.cumsum(0)]).int(), lpm)
+    torch.cuda.synchronize()
+    print(f"[edges] {cases} cases: {len(failures)} differ from the plain version; load "
+          f"widths that ran (bytes): {sorted(loads)}")
+    for f in failures[:20]:
+        print(f"[edges] MISMATCH {f}")
+    if failures:
+        raise SystemExit(f"[edges] {len(failures)} of {cases} cases disagree")
+    if not {16, 8, 4, 2} <= loads:
+        raise SystemExit(f"[edges] not every load width ran: {sorted(loads)}")
 
 
 def float64_runs(gy, t_idx, t_sid, coeff, live, num_rows=None):
@@ -867,7 +968,8 @@ def timings(name, kernel_fn, plain_fn, library_fn, bound, app_bytes):
     k = bench.cuda_time_ms(kernel_fn)
     p = bench.cuda_time_ms(plain_fn, warmup=1, iters=5)
     lib = bench.cuda_time_ms(library_fn)
-    print(f"[{name}] kernel {k:.4f} ms, {app_bytes / k / 1e6:.1f} app GB/s; "
+    print(f"[{name}] kernel {k:.4f} ms (PR 3: {PR3_FWD_MS[name[:-5]]} ms), "
+          f"{app_bytes / k / 1e6:.1f} app GB/s; "
           f"plain {p:.4f} ms; F.embedding_bag {lib:.4f} ms; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
           f"{bound['unique_rows']} unique rows, {bound['bytes']} bytes at {HBM_PEAK}), "
@@ -1063,6 +1165,7 @@ def main():
 
     # 3. Parity grids: K1 and K2, then K3.
     phase_grid()
+    phase_edges()
     phase_backward_grid()
 
     # Inputs of the main path, made before the counts are reset.
@@ -1159,7 +1262,7 @@ def main():
         m = tce.CombineMode(mode.removesuffix("_w"))
         extra = offsets.numel() * 8 + (nnz * 4 if w is not None else 0)
         t = timings(
-            f"csr {mode} fp16 lpm={lpm}",
+            f"csr {mode}{' lpm' if lpm else ''} fp16",
             lambda: k2(table, flat, offsets, w, mode=m, low_precision_math=lpm),
             lambda: plain(table, flat, offsets, w, mode=m, low_precision_math=lpm),
             lambda: F.embedding_bag(live, table, offsets, mode=m.value,
@@ -1178,7 +1281,8 @@ def main():
     ):
         dev = bench.cuda_time_ms(lambda: k1(bag.weight.detach(), batch),
                                  flush_l2=False)
-        print(f"[{name}] K1 {dev:.4f} ms on the device (L2 warm) of the "
+        pr3 = f" (PR 3: {PR3_FWD_MS['config 1']} ms)" if bag is small else ""
+        print(f"[{name}] K1 {dev:.4f} ms on the device (L2 warm){pr3} of the "
               f"{request_ms:.4f} ms request: the rest, {1 - dev / request_ms:.1%}, "
               f"is host time")
 

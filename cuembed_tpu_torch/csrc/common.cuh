@@ -13,7 +13,7 @@
 
 namespace cuembed {
 
-constexpr int kThreads = 256;  // threads per block
+constexpr int kThreads = 256;  // threads per block (the forward kernels' most)
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -87,25 +87,5 @@ struct Vec {
     *reinterpret_cast<Raw*>(p) = r;
   }
 };
-
-// Block shape for rows of `nvec` vectors: up to kThreads lanes across the
-// row, and as many rows of threads (samples) as fill kThreads.
-inline dim3 block_shape(int64_t nvec) {
-  int tx = 1;
-  if (nvec >= 32) {
-    tx = static_cast<int>(imin((nvec + 31) / 32 * 32, kThreads));
-  } else {
-    while (tx < nvec) tx *= 2;
-  }
-  return dim3(tx, kThreads / tx);
-}
-
-// One block per block.y items; fails on an empty or oversized grid.
-inline cudaError_t grid_of(int64_t items, const dim3& block, dim3* grid) {
-  const int64_t blocks = (items + block.y - 1) / block.y;
-  if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  *grid = dim3(static_cast<unsigned>(blocks));
-  return cudaSuccess;
-}
 
 }  // namespace cuembed

@@ -111,11 +111,14 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    # The launch plan: lanes, slabs, items_per_block, threads, smem_bytes.
+    plan = [i32, i32, i64, i32, i32]
     lib.cuembed_fixed_forward.argtypes = [
         ptr, ptr, ptr, ptr,  # table, indices, weights, out
         i64, i64, i64, i64,  # num_rows, batch, hotness, width
         i32, i32, i32, i32,  # dtype, index_bytes, low_precision_math, vec_bytes
-        ctypes.c_float, i32,  # mean_scale, has_scale
+        ctypes.c_float, i32,  # mean_scale, mean
+        *plan,
         ptr,  # stream
     ]
     lib.cuembed_fixed_forward.restype = i32
@@ -124,9 +127,16 @@ def load_library() -> ctypes.CDLL:
         i64, i64, i64, i64,  # num_rows, batch, capacity, width
         i32, i32, i32, i32, i32,  # dtype, index_bytes, offset_bytes, lpm, vec_bytes
         i32,  # mean
+        *plan,
         ptr,  # stream
     ]
     lib.cuembed_csr_forward.restype = i32
+    lib.cuembed_forward_shape.argtypes = [
+        i32, i32, i32, i32, i32,  # csr, dtype, index_bytes, offset_bytes, has_w
+        i32, i32, i32, i32, i32,  # lpm, vec_bytes, lanes, threads, smem_bytes
+        ptr,  # shape: int64[4]
+    ]
+    lib.cuembed_forward_shape.restype = i32
     lib.cuembed_coo_backward.argtypes = [
         ptr, ptr, ptr, ptr,  # grad_y, t_idx, t_sid, coeff
         ptr, ptr, ptr, ptr,  # out, uniq, head, tail

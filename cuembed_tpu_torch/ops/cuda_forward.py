@@ -11,11 +11,14 @@
 Each wrapper checks its inputs, then computes with the plain PyTorch
 version (:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU,
 and launches its kernel for tensors on a CUDA device, on the current
-stream. A kernel that fails to build or launch raises; nothing falls back.
-Each wrapper's ``launches`` attribute counts the kernel's launches.
+stream, as :func:`launch_plan` lays it out. A kernel that fails to build or
+launch raises; nothing falls back. Each wrapper's ``launches`` attribute
+counts the kernel's launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +36,77 @@ from cuembed_tpu_torch.types import (
 
 # Storage dtype -> the kernels' dtype code.
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# The launch plan (tools/fwd_sweep.py times others): warps a block of K1
+# and of K2; and work items each worker of a block takes, in turn, from the
+# block's queue (K1's bags are all alike; K2's are ragged), where the batch
+# still gives FULL_GRID blocks.
+FIXED_WARPS = 8
+CSR_WARPS = 8
+FIXED_ITEMS = 2
+CSR_ITEMS = 8
+FULL_GRID = 1024  # blocks: about two waves of 4 blocks on an H100's 132 SMs
+MAX_THREADS = 256  # kThreads in csrc/common.cuh
+MAX_SMEM_BYTES = 232_448  # the most shared memory an H100 block can use (227 KB)
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 or K2 covers a batch (``csrc/forward.cu``)."""
+
+    lanes: int  # threads of a worker, one column vector each: 8, 16 or 32
+    slabs: int  # column slabs of ``lanes`` vectors a row
+    threads: int  # threads a block
+    items_per_block: int  # (bag, slab) work items a block owns
+    blocks: int
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def launch_plan(nvec: int, batch: int, *, csr: bool, weighted: bool) -> LaunchPlan:
+    """The launch of K1 (``csr=False``) or K2 over ``batch`` bags of rows of
+    ``nvec`` column vectors.
+
+    A worker is a warp, or 8 or 16 lanes of one for rows of up to 16
+    vectors; wider rows are cut into slabs of 32 vectors, each its own work
+    item. Shared memory: each thread stages one position at a time, an
+    int64 row offset and, weighted, a 32-bit coefficient; a K2 block also
+    holds its bags' int64 offsets.
+    """
+    if nvec < 1 or batch < 1:
+        raise ValueError(f"nothing to launch for {batch} bags of {nvec} vectors")
+    lanes = 8
+    while lanes < min(nvec, 32):
+        lanes *= 2
+    slabs = -(-nvec // lanes)
+    threads = 32 * (CSR_WARPS if csr else FIXED_WARPS)
+    items_per_block = threads // lanes * (CSR_ITEMS if csr else FIXED_ITEMS)
+    if -(-batch * slabs // items_per_block) < FULL_GRID:
+        items_per_block = threads // lanes
+    blocks = -(-batch * slabs // items_per_block)
+    smem_bytes = threads * (8 + 4 * weighted) + (8 * (items_per_block + 2) if csr else 0)
+    if threads > MAX_THREADS or smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"a block of {threads} threads and {smem_bytes} bytes does not fit")
+    if blocks > 2**31 - 1:
+        raise ValueError(f"{batch} bags need {blocks} blocks, more than a grid holds")
+    return LaunchPlan(lanes, slabs, threads, items_per_block, blocks, smem_bytes)
+
+
+def launch_shape(dtype: torch.dtype, width: int, batch: int, *, csr: bool = False,
+                 index_bytes: int = 8, offset_bytes: int = 8, weighted: bool = False,
+                 low_precision_math: bool = False, vec: int = 16) -> dict:
+    """K1's (or K2's) launch shape for a batch at this width, from the built
+    library on the current card: registers and spill bytes a thread, shared
+    memory a block, threads a block and resident blocks per SM."""
+    plan = launch_plan(width * (torch.finfo(dtype).bits // 8) // vec, batch, csr=csr,
+                       weighted=weighted)
+    shape = torch.zeros(4, dtype=torch.int64)
+    err = _build.load_library().cuembed_forward_shape(
+        int(csr), _DTYPE_CODE[dtype], index_bytes, offset_bytes, int(weighted),
+        int(low_precision_math), vec, plan.lanes, plan.threads, plan.smem_bytes,
+        shape.data_ptr())
+    _raise_on_error(err, "csr_forward_kernel" if csr else "fixed_forward_kernel")
+    regs, spill, smem, blocks = shape.tolist()
+    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+            "threads": plan.threads, "blocks_per_sm": blocks, "lanes": plan.lanes}
 
 
 def _check_common(table, indices, weights, mode):
@@ -122,6 +196,9 @@ def embedding_forward_cuda(
         return out
     acc_dt = accumulation_dtype(table.dtype, low_precision_math)
     mean = mode == CombineMode.MEAN
+    vec = _vec_bytes(width, table.element_size(), table, out)
+    plan = launch_plan(width * table.element_size() // vec, batch, csr=False,
+                       weighted=weights is not None)
     lib = _build.load_library()
     with torch.cuda.device(table.device):
         err = lib.cuembed_fixed_forward(
@@ -130,9 +207,10 @@ def embedding_forward_cuda(
             out.data_ptr(),
             num_rows, batch, hotness, width,
             _DTYPE_CODE[table.dtype], indices.element_size(),
-            int(acc_dt != torch.float32),
-            _vec_bytes(width, table.element_size(), table, out),
+            int(acc_dt != torch.float32), vec,
             rounded_reciprocal(hotness, acc_dt) if mean else 1.0, int(mean),
+            plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
+            plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(err, "fixed_forward_kernel")
@@ -185,6 +263,9 @@ def embedding_forward_cuda_csr(
     if batch == 0 or width == 0:
         return out
     acc_dt = accumulation_dtype(table.dtype, low_precision_math)
+    vec = _vec_bytes(width, table.element_size(), table, out)
+    plan = launch_plan(width * table.element_size() // vec, batch, csr=True,
+                       weighted=weights is not None)
     lib = _build.load_library()
     with torch.cuda.device(table.device):
         err = lib.cuembed_csr_forward(
@@ -193,9 +274,10 @@ def embedding_forward_cuda_csr(
             out.data_ptr(),
             num_rows, batch, indices.shape[0], width,
             _DTYPE_CODE[table.dtype], indices.element_size(),
-            offsets.element_size(), int(acc_dt != torch.float32),
-            _vec_bytes(width, table.element_size(), table, out),
+            offsets.element_size(), int(acc_dt != torch.float32), vec,
             int(mode == CombineMode.MEAN),
+            plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
+            plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(err, "csr_forward_kernel")

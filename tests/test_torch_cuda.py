@@ -104,6 +104,119 @@ def test_misaligned_table_takes_a_narrower_load(gen, shift):
     assert torch.equal(got, embedding_forward_torch(table, idx))
 
 
+def _csr_of(lengths, V, gen, pad=5):
+    """Offsets of bags of the given lengths, in order, and random ids with
+    ``pad`` entries of capacity padding."""
+    hots = torch.tensor(lengths, device="cuda")
+    offsets = torch.cat([hots.new_zeros(1), hots.cumsum(0)])
+    flat = torch.randint(0, V, (int(offsets[-1]) + pad,), device="cuda", generator=gen)
+    return flat, offsets
+
+
+def _forward_equals_plain(table, idx, offsets, gen, lpm, modes=("sum", "sum_w", "mean")):
+    """K1 (offsets None) or K2 on these ids, in each mode, bit for bit
+    against the plain version."""
+    for mode in modes:
+        w = torch.rand(idx.shape, device="cuda", generator=gen) if mode == "sum_w" else None
+        m = tce.CombineMode(mode.removesuffix("_w"))
+        if offsets is None:
+            got = cuda_forward.embedding_forward_cuda(table, idx, w, mode=m,
+                                                      low_precision_math=lpm)
+        else:
+            got = cuda_forward.embedding_forward_cuda_csr(table, idx, offsets, w, mode=m,
+                                                          low_precision_math=lpm)
+        want = embedding_forward_torch(table, idx, offsets, w, mode=m, low_precision_math=lpm)
+        assert torch.equal(got, want), (mode, tuple(idx.shape))
+
+
+@pytest.mark.parametrize("dtype,lpm", TYPES)
+def test_long_bags(gen, dtype, lpm):
+    """Bags far longer than a worker's 32 staged positions: fixed hotness
+    2100, and a CSR batch where one bag of 5000 holds most positions beside
+    short and empty ones."""
+    V = 300
+    table = torch.randn((V, 64), device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(0, V, (3, 2100), device="cuda", generator=gen)
+    _forward_equals_plain(table, idx, None, gen, lpm)
+    flat, offsets = _csr_of([5000, 3, 0, 2100, 1, 33], V, gen)
+    _forward_equals_plain(table, flat, offsets, gen, lpm)
+
+
+@pytest.mark.parametrize("dtype,lpm", TYPES)
+def test_zero_hotness_batch_is_zeros(gen, dtype, lpm):
+    table = torch.randn((50, 256), device="cuda", generator=gen).to(dtype)
+    idx = torch.zeros((9, 0), dtype=torch.int64, device="cuda")
+    _forward_equals_plain(table, idx, None, gen, lpm, modes=("sum", "sum_w"))
+    assert not cuda_forward.embedding_forward_cuda(table, idx).any()
+
+
+@pytest.mark.parametrize("dtype,lpm", TYPES)
+@pytest.mark.parametrize("ids", ["one row", "four rows"])
+def test_repeated_rows(gen, dtype, lpm, ids):
+    """Width 256 at hotness 64, every id on one row or on four: every load
+    after the first hits on chip."""
+    V = 1000
+    table = torch.randn((V, 256), device="cuda", generator=gen).to(dtype)
+    if ids == "one row":
+        idx = torch.full((70, 64), 617, device="cuda")
+    else:
+        idx = torch.randint(0, 4, (70, 64), device="cuda", generator=gen) * 211
+    _forward_equals_plain(table, idx, None, gen, lpm)
+    hots = torch.randint(0, 65, (70,), device="cuda", generator=gen)
+    offsets = torch.cat([hots.new_zeros(1), hots.cumsum(0)])
+    _forward_equals_plain(table, idx.reshape(-1), offsets, gen, lpm)
+
+
+@pytest.mark.parametrize("batch", [1, 9, 33, 257])
+@pytest.mark.parametrize("width,dtype", [(256, torch.float16), (32, torch.float32),
+                                         (514, torch.float32)])
+def test_batches_off_the_block_size(gen, batch, width, dtype):
+    """Batches that do not fill the last block's workers (a warp a bag at
+    width 256 fp16, 8 lanes at 32 fp32, 17 slabs at 514 fp32)."""
+    table = torch.randn((400, width), device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(0, 400, (batch, 13), device="cuda", generator=gen)
+    _forward_equals_plain(table, idx, None, gen, False)
+    hots = torch.randint(0, 27, (batch,), device="cuda", generator=gen)
+    offsets = torch.cat([hots.new_zeros(1), hots.cumsum(0)])
+    flat = torch.randint(0, 400, (int(offsets[-1]) + 2,), device="cuda", generator=gen)
+    _forward_equals_plain(table, flat, offsets, gen, False)
+
+
+# (dtype, low-precision math, element offset of the table view, load width).
+ROUTE_VIEWS = [(torch.float32, False, 2, 8), (torch.float32, False, 1, 4),
+               (torch.float16, False, 4, 8), (torch.float16, True, 4, 8),
+               (torch.float16, False, 1, 2), (torch.float16, True, 1, 2),
+               (torch.bfloat16, True, 4, 8), (torch.bfloat16, True, 1, 2)]
+
+
+@pytest.mark.parametrize("dtype,lpm,shift,vec", ROUTE_VIEWS,
+                         ids=[f"{str(d)[6:]}-lpm{int(lp)}-{v}B" for d, lp, _, v in ROUTE_VIEWS])
+def test_misaligned_tables_take_each_load_width(gen, dtype, lpm, shift, vec):
+    """A table view ``shift`` elements into its storage takes 8-byte or
+    one-element loads (under low-precision math a one-element vector rides
+    in half a packed word), K1 and K2 alike, bit for bit."""
+    base = torch.randn((201 * 256,), device="cuda", generator=gen).to(dtype)
+    table = base[shift:shift + 200 * 256].view(200, 256)
+    out = torch.empty((1, 256), dtype=dtype, device="cuda")
+    assert cuda_forward._vec_bytes(256, table.element_size(), table, out) == vec
+    idx = torch.randint(0, 200, (37, 19), device="cuda", generator=gen)
+    _forward_equals_plain(table, idx, None, gen, lpm)
+    hots = torch.randint(0, 20, (37,), device="cuda", generator=gen)
+    offsets = torch.cat([hots.new_zeros(1), hots.cumsum(0)]).int()
+    _forward_equals_plain(table, idx.reshape(-1), offsets, gen, lpm)
+
+
+def test_launch_shape_fits_the_card(gen):
+    """The flagship launch shapes from the built library: no spills, a few
+    KB of shared memory, several blocks resident per SM."""
+    for csr, weighted in ((False, False), (True, True)):
+        shape = cuda_forward.launch_shape(torch.float16, 256, 65536, csr=csr,
+                                          weighted=weighted)
+        assert shape["spill_bytes"] == 0
+        assert shape["smem_bytes"] <= 4096
+        assert shape["blocks_per_sm"] >= 2
+
+
 def _sorted_coo(gen, n, V, rows, index_dtype, *, long_run=0, pad=0):
     """An index-sorted COO of n live entries (the first ``long_run`` share
     one index, a run over several tiles) and ``pad`` sentinel entries."""
