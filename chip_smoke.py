@@ -58,7 +58,22 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    backward, its bound and the first design's times (PR 2, from PERF.md);
    the transpose; a dense step and an AdaGrad step end to end, each with a
    ``torch.profiler`` breakdown of device time.
-7. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
+7. The TPU engines' API (ROADMAP P7) on the same kernels, each path counted
+   the same way. Serving, at config 2: ``backend="tiered"`` with
+   ``auto_config(10M, 256, 2, 64)`` (K1) and config 3's weighted CSR under
+   ``csr_combine_config`` (K2), each equal to ``backend="auto"`` bit for
+   bit; ``EmbeddingBag(layout="packed")`` at config 1, equal to the padded
+   layout bit for bit; ``narrow_lookup`` at the 10M x 32 fp32 sweep point,
+   which must hand K1 the packed storage itself; ``tiered_forward`` with an
+   int8 head of ``int8_head_rows(256, DEFAULT_HOT_BYTES)`` rows, against a
+   float32 version of its sum; and ``int8_serving_lookup`` over the whole
+   table quantized, within ``sum max|row| / 254`` of the exact lookup.
+   Training, at config 4: the dense step's gradient with a ``tiered_cfg``
+   (the head product plus K3 over the other positions) equal to the
+   untiered K3 gradient bit for bit on integer ``grad_y``, and tiered sparse
+   SGD and AdaGrad steps against the untiered ones. Each is timed beside
+   the kernel route it stands for.
+8. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
@@ -89,8 +104,10 @@ import torch.nn.functional as F  # noqa: E402
 
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch import train
-from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward, dispatch
-from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
+from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward, dispatch, narrow, quant
+from cuembed_tpu_torch.ops import tiered as tiered_mod
+from cuembed_tpu_torch.ops.head import head_grad, tiered_backward_coo
+from cuembed_tpu_torch.ops.lookup_torch import SENTINEL, embedding_backward_compressed_tiered
 from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_compressed_torch as plain_bwd_c
 from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_torch as plain_bwd
 from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
@@ -143,6 +160,9 @@ PR3_FWD_MS = {"fixed sum": 0.2586, "csr sum_w": 0.2248, "csr sum_w lpm": 0.2693,
 BWD_PAD = 7  # sentinel entries past the live positions
 # Significand bits (with the implicit one) of each storage type.
 BITS = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}
+# The narrow sweep point (benchmarks/sweep_parameters.sh:9-24): a 10M x 32
+# fp32 table, batch 131072, hotness 64, alpha 1.15.
+SWEEP_ROWS, SWEEP_WIDTH, SWEEP_BATCH = 10_000_000, 32, 131072
 # Learning rates of the sparse steps: large enough that a bf16 table moves.
 ADAGRAD_LR, SGD_LR = 0.01, 1e-4
 DENSE_STEPS, ADAGRAD_STEPS = 3, 3
@@ -1145,6 +1165,326 @@ def step_timings(bag, idx, steps=5):
     return out
 
 
+@contextlib.contextmanager
+def k1_tables(seen):
+    """Record the data pointer of every table K1's wrapper is handed. The
+    wrapper counts its launches on the module's name, the spy here, and
+    the count goes back to the wrapper after."""
+    real = cuda_forward.embedding_forward_cuda
+
+    def spy(table, *args, **kwargs):
+        seen.append(table.data_ptr())
+        return real(table, *args, **kwargs)
+    spy.launches = real.launches
+    cuda_forward.embedding_forward_cuda = spy
+    try:
+        yield
+    finally:
+        cuda_forward.embedding_forward_cuda = real
+        real.launches = spy.launches
+
+
+def int8_positions(ids, cfg, q_rows):
+    """The positions the JAX engine serves from an int8 head of ``q_rows``
+    rows, worked out here from the config alone: ``mxu_head_rows <= id <
+    q_rows``, and none at all when some chunk of ``chunk_elems`` flattened
+    positions (the last one padded with row 0) holds more than ``mid_slots``
+    of those or more than ``cold_slots`` ids at or past ``q_rows``."""
+    n = ids.numel()
+    flat = torch.cat([ids.reshape(-1), ids.new_zeros(-n % cfg.chunk_elems)])
+    chunk = torch.arange(flat.numel(), device=flat.device) // cfg.chunk_elems
+    mid = (flat >= cfg.mxu_head_rows) & (flat < q_rows)
+    most = [torch.bincount(chunk[tier], minlength=1).max().item()
+            for tier in (mid, flat >= q_rows)]
+    over = most[0] > cfg.mid_slots or most[1] > cfg.cold_slots
+    return (mid[:n] & (not over)).view(ids.shape)
+
+
+def int8_bound_ratio(out, table, idx, served=None, qdata=None):
+    """The int8 lookups against float32 sums of the same rows, in chunks of
+    the batch. Without ``served``: ``out`` is int8_serving_lookup's, held
+    to sum max|row| / 254 per bag of the exact sum. With ``served`` (the
+    int8 head's positions): ``out`` is tiered_forward(q_head=...)'s, held
+    to one fp16 ulp of its exact part plus one of the result around the
+    float32 sum of the exact rows and the int8 rows (the exact part rounds
+    to the table's type, then the sum does); its distance from the exact
+    lookup is held to the int8 rows' bound plus one fp16 ulp.
+    Returns (worst error/allowed, worst distance/bound)."""
+    worst, dist = 0.0, 0.0
+    for s0 in range(0, out.shape[0], COMPARE_ROWS):
+        s1 = min(out.shape[0], s0 + COMPARE_ROWS)
+        ids = idx[s0:s1]
+        rows = table.index_select(0, ids.reshape(-1)).view(*ids.shape, -1).float()
+        exact = rows.sum(1)
+        amax = rows.abs().amax(-1) / 254
+        got = out[s0:s1].float()
+        if served is None:
+            bound = amax.sum(1) + 1e-5
+            worst = max(worst, ((got - exact).abs().amax(-1) / bound).max().item())
+            continue
+        sel = served[s0:s1]
+        lines = qdata.index_select(0, torch.where(sel, ids, 0).reshape(-1))
+        # The layout's scale: the fp32 bytes at columns W..W+3 of each line.
+        deq = lines[:, :WIDTH].float() * lines[:, WIDTH:WIDTH + 4].contiguous().view(
+            torch.float32)
+        deq = deq.view(*ids.shape, -1)
+        part = torch.where(sel[..., None], 0.0, rows).sum(1)
+        ref = part + torch.where(sel[..., None], deq, 0.0).sum(1)
+        allowed = ulp(part, torch.float16) + ulp(ref, torch.float16)
+        worst = max(worst, ((got - ref).abs() / allowed).max().item())
+        bound = (amax * sel).sum(1) + 1e-5 + ulp(exact, torch.float16).amax(-1)
+        dist = max(dist, ((got - exact).abs().amax(-1) / bound).max().item())
+    return worst, dist
+
+
+def phase_p7_serving(table, idx, hot_idx, flat, offsets, csr_w, small, small_batch, seed):
+    """The tiered, narrow and int8 serving paths (ROADMAP P7), counted, then
+    checked against the kernel route each stands for and timed beside it.
+    The int8 head runs on the permuted ids (every chunk overflows its slots:
+    served exactly, as the JAX engine serves them) and on ``hot_idx``, the
+    same law without the permutation (a table stored hot-first, as the
+    tiered engine expects), where it takes the int8 rows. Returns
+    (launches, max |kernel - plain|)."""
+    k1, k2 = cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr
+    nnz = int(offsets[-1])
+    cfg = tiered_mod.auto_config(NUM_ROWS, WIDTH, table.element_size(), HOTNESS)
+    ccfg = tce.csr_combine_config(NUM_ROWS, nnz / BATCH)
+    q_rows = quant.int8_head_rows(WIDTH, tiered_mod.DEFAULT_HOT_BYTES)
+    # The hot-first batch's tier fractions size the int8 head's slots, as
+    # calibration would (the defaults assume a 30% mid tier; it holds 43%).
+    qcfg = tiered_mod.auto_config(
+        NUM_ROWS, WIDTH, table.element_size(), HOTNESS,
+        cold_fraction=(hot_idx >= q_rows).float().mean().item(),
+        head_fraction=(hot_idx < cfg.mxu_head_rows).float().mean().item())
+    print(f"[p7] config 2 tiered config {cfg}; config 3 combine config {ccfg}; int8 "
+          f"head of {q_rows} rows, with the hot-first batch's config {qcfg}")
+    t0 = time.perf_counter()
+    ngen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    scale = SWEEP_WIDTH ** -0.5
+    packed = torch.empty((SWEEP_ROWS // 4, 128), device="cuda").uniform_(
+        -scale, scale, generator=ngen)  # the JAX package's packed layout, k = 4
+    raw = narrow.unpack_narrow(packed, SWEEP_ROWS, SWEEP_WIDTH)
+    narrow_idx = torch.from_numpy(PowerLawGenerator(
+        SWEEP_ROWS - 1, HOTNESS, ALPHA, permute=True, seed=seed + 5,
+        dtype=np.int64).sample(SWEEP_BATCH)).cuda()
+    packed_bag = tce.EmbeddingBag(SMALL_ROWS, SMALL_WIDTH, layout="packed")
+    packed_bag.import_table(small.weight.detach())
+    qh = quant.quantize_head(table[:q_rows])
+    torch.cuda.synchronize()
+    print(f"[p7] inputs: the sweep point's packed table {tuple(packed.shape)} and ids "
+          f"{tuple(narrow_idx.shape)}, a packed config 1 module, the int8 head: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    seen = []
+    k1.launches = k2.launches = 0
+    with plain_path_forbidden(cuda_forward, dispatch), torch.inference_mode():
+        tiered_out = tce.embedding_lookup(table, idx, backend="tiered", tiered_cfg=cfg)
+        tiered_csr = tce.embedding_lookup_csr(table, flat, offsets, csr_w,
+                                              backend="tiered", tiered_cfg=ccfg)
+        packed_out = packed_bag(small_batch)
+        with k1_tables(seen):
+            narrow_out = narrow.narrow_lookup(packed, SWEEP_ROWS, SWEEP_WIDTH, narrow_idx)
+        q_outs = [tce.tiered_forward(table, ids, cfg=c, q_head=qh)
+                  for ids, c in ((idx, cfg), (hot_idx, qcfg))]
+        torch.cuda.synchronize()
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    print(f"[p7 serving] launches: {launches} (tiered fixed, packed module, narrow "
+          f"lookup and the int8 head twice: K1; tiered CSR: K2)")
+    if launches != {"K1": 5, "K2": 1}:
+        raise SystemExit("[p7 serving] a path did not launch its kernel once")
+    if seen != [packed.data_ptr()]:
+        raise SystemExit(f"[p7 narrow] K1 was handed {seen}, not the packed storage "
+                         f"{packed.data_ptr()}")
+    print("[p7 narrow] K1 read the packed table's own storage (no copy)")
+
+    with torch.inference_mode():
+        checks = (("tiered fixed == auto", tiered_out, tce.embedding_lookup(table, idx)),
+                  ("tiered csr == auto", tiered_csr,
+                   tce.embedding_lookup_csr(table, flat, offsets, csr_w)),
+                  ("packed module == padded module", packed_out, small(small_batch)),
+                  ("narrow lookup == K1 on the raw table", narrow_out, k1(raw, narrow_idx)))
+        for name, got, want in checks:
+            if not torch.equal(got, want):
+                raise SystemExit(f"[p7] {name}: not bit for bit")
+            print(f"[p7] {name}: bit for bit")
+        err = compare_in_chunks(narrow_out, raw, narrow_idx)
+        for name, ids, c, q_out in zip(("permuted", "hot-first"), (idx, hot_idx),
+                                       (cfg, qcfg), q_outs):
+            served = int8_positions(ids, c, q_rows)
+            worst, dist = int8_bound_ratio(q_out, table, ids, served, qh.data)
+            print(f"[p7 int8 head, {name} ids] {int(served.sum())} of {served.numel()} "
+                  f"positions from the int8 rows; against a float32 sum of the same rows: "
+                  f"error/allowed {worst:.3g}; distance from the exact lookup over the "
+                  f"int8 rows' bound {dist:.3g} (each at most 1 passes)")
+            if worst > 1 or dist > 1 or not torch.isfinite(q_out).all():
+                raise SystemExit("[p7 int8 head] off")
+        if not int8_positions(hot_idx, qcfg, q_rows).any():
+            raise SystemExit("[p7 int8 head] the hot-first batch took no int8 row")
+        del q_outs
+        qt = quant.quantize_head(table)
+        int8_out = quant.int8_serving_lookup(qt, idx)
+        ratio, _ = int8_bound_ratio(int8_out, table, idx)
+        print(f"[p7 int8 table] the whole table quantized, {qt.data.numel()} bytes; "
+              f"lookup error over its bound sum max|row|/254: {ratio:.3g} (at most 1 passes)")
+        if ratio > 1 or tuple(int8_out.shape) != (BATCH, WIDTH):
+            raise SystemExit("[p7 int8 table] outside the documented bound")
+
+        # Times, each beside the kernel route it stands for; same call, in turns.
+        times = {
+            "K1 fixed": bench.cuda_time_ms(lambda: k1(table, idx)),
+            "tiered fixed": bench.cuda_time_ms(lambda: tce.embedding_lookup(
+                table, idx, backend="tiered", tiered_cfg=cfg)),
+            "K2 csr sum_w": bench.cuda_time_ms(lambda: k2(table, flat, offsets, csr_w)),
+            "tiered csr sum_w": bench.cuda_time_ms(lambda: tce.embedding_lookup_csr(
+                table, flat, offsets, csr_w, backend="tiered", tiered_cfg=ccfg)),
+            "K1 raw 10M x 32": bench.cuda_time_ms(lambda: k1(raw, narrow_idx)),
+            "narrow_lookup 10M x 32": bench.cuda_time_ms(lambda: narrow.narrow_lookup(
+                packed, SWEEP_ROWS, SWEEP_WIDTH, narrow_idx)),
+            "K1 fixed again": bench.cuda_time_ms(lambda: k1(table, idx)),
+            "int8 head tiered_forward, permuted ids": bench.cuda_time_ms(
+                lambda: tce.tiered_forward(table, idx, cfg=cfg, q_head=qh), iters=5),
+            "int8 head tiered_forward, hot-first ids": bench.cuda_time_ms(
+                lambda: tce.tiered_forward(table, hot_idx, cfg=qcfg, q_head=qh), iters=5),
+            "K1 fixed, hot-first ids": bench.cuda_time_ms(lambda: k1(table, hot_idx)),
+            "int8_serving_lookup": bench.cuda_time_ms(
+                lambda: quant.int8_serving_lookup(qt, idx), iters=5),
+        }
+    print("[p7 times] device ms (CUDA events, L2 flushed), in turns: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    del qt, int8_out, packed, raw, narrow_idx
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def phase_p7_training(bag, idx, hot_idx, gen):
+    """The tiered training path (ROADMAP P7) at config 4, counted: the dense
+    step's gradient with a tiered_cfg (K3 over the whole COO: the config
+    changes no gradient), the JAX package's split of it (the head product
+    plus K3 over the non-head positions, ``head.tiered_backward_coo``) and
+    its compressed form, and the sparse SGD and AdaGrad steps with a
+    tiered_cfg; then each against its untiered counterpart, the split also
+    on ``hot_idx`` (where the head takes about half the positions), and the split
+    timed beside the untiered gradient. Returns the launches."""
+    k1 = cuda_forward.embedding_forward_cuda
+    kb, kc = cuda_backward.embedding_backward_cuda, cuda_backward.embedding_backward_cuda_compressed
+    cfg = tiered_mod.auto_config(NUM_ROWS, WIDTH, 2, HOTNESS)
+    weight = bag.weight
+    touched = torch.unique(idx)
+    # Integer grad_y: every fp32 sum is exact, so the split must not change
+    # a bit of the gradient.
+    gy = torch.randint(-3, 4, (BATCH, WIDTH), device="cuda", generator=gen).to(weight.dtype)
+    gy32 = gy.float()
+    with torch.no_grad():
+        sparse_gy = train.embedding_grad_y(sparse_loss, bag(idx))
+    sgd_table, ada_table = weight.detach().clone(), weight.detach().clone()
+    ada_acc = train.rowwise_adagrad_init(NUM_ROWS)
+    old = weight.detach()[touched]
+    sid = torch.arange(BATCH * HOTNESS, dtype=torch.int32, device="cuda") // HOTNESS
+
+    def masked_coo(ids):
+        flat_idx = ids.reshape(-1)
+        return transpose_position_ordered(
+            sid, torch.where(flat_idx < cfg.mxu_head_rows, SENTINEL, flat_idx))
+
+    def split(ids):
+        return tiered_backward_coo(gy, NUM_ROWS, ids, None, *masked_coo(ids), cfg,
+                                   accumulation_dtype=torch.float32)
+
+    def untiered(ids):
+        return dispatch.backward(gy, NUM_ROWS, *transpose_position_ordered(
+            sid, ids.reshape(-1)), accumulation_dtype=torch.float32)
+
+    weight.grad = None
+    k1.launches = kb.launches = kc.launches = 0
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        bag(idx, tiered_cfg=cfg).backward(gy)
+        split_grad = split(idx)
+        split_c = embedding_backward_compressed_tiered(gy32, NUM_ROWS, idx, None,
+                                                       *masked_coo(idx), cfg)
+        train.sgd_sparse_update(sgd_table, idx, sparse_gy, lr=SGD_LR, tiered_cfg=cfg)
+        train.rowwise_adagrad_sparse_update(ada_table, ada_acc, idx, sparse_gy,
+                                            lr=ADAGRAD_LR, tiered_cfg=cfg)
+        torch.cuda.synchronize()
+    launches = {"K1": k1.launches, "K3 full": kb.launches, "K3 compressed": kc.launches}
+    print(f"[p7 training] launches: {launches} (the dense step with tiered_cfg and the "
+          f"split: K3 full; the split's compressed form, SGD and AdaGrad: compressed)")
+    if launches != {"K1": 1, "K3 full": 2, "K3 compressed": 3}:
+        raise SystemExit("[p7 training] a step did not launch its kernels")
+
+    def same(a, b):
+        return all(torch.equal(a[r:r + (1 << 20)], b[r:r + (1 << 20)])
+                   for r in range(0, NUM_ROWS, 1 << 20))
+    tiered_grad = weight.grad
+    weight.grad = None
+    bag(idx).backward(gy)
+    head_rows = int((touched < cfg.mxu_head_rows).sum())
+    for name, got in (("the dense step's gradient with tiered_cfg", tiered_grad),
+                      (f"the split (head product over {cfg.mxu_head_rows} rows, "
+                       f"{head_rows} of them looked up, plus K3)", split_grad)):
+        ok = same(got, weight.grad)
+        print(f"[p7 dense] {name} {'equal to' if ok else 'DIFFERS from'} the untiered "
+              f"K3 gradient, bit for bit")
+        if not ok:
+            raise SystemExit("[p7 dense] a tiered gradient differs")
+    del tiered_grad, split_grad
+    weight.grad = None
+    want_c = dispatch.backward_compressed(gy32, *transpose_position_ordered(
+        sid, idx.reshape(-1)))
+    nu = int(want_c.num_unique)
+    ok = (int(split_c.num_unique) == nu
+          and torch.equal(split_c.unique_indices[:nu], want_c.unique_indices[:nu])
+          and torch.equal(split_c.rows[:nu], want_c.rows[:nu]))
+    print(f"[p7 compressed] the split's compressed gradient ({nu} rows, the sentinel "
+          f"run left out) {'equal to' if ok else 'DIFFERS from'} the untiered K3 one, "
+          f"bit for bit")
+    if not ok:
+        raise SystemExit("[p7 compressed] the tiered compressed gradient differs")
+    del split_c, want_c
+    in_head = int((hot_idx < cfg.mxu_head_rows).sum())
+    ok = same(split(hot_idx), untiered(hot_idx))
+    print(f"[p7 dense, hot-first ids] {in_head} of {hot_idx.numel()} positions in the "
+          f"head; the split {'equal to' if ok else 'DIFFERS from'} the untiered "
+          f"gradient, bit for bit")
+    if not ok:
+        raise SystemExit("[p7 dense] the split differs on hot-first ids")
+    torch.cuda.empty_cache()
+    want = weight.detach().clone()
+    train.sgd_sparse_update(want, idx, sparse_gy, lr=SGD_LR)
+    check_sparse_step("p7 tiered sgd", sgd_table, want, old, touched)
+    del sgd_table
+    want.copy_(weight.detach())
+    acc = train.rowwise_adagrad_init(NUM_ROWS)
+    train.rowwise_adagrad_sparse_update(want, acc, idx, sparse_gy, lr=ADAGRAD_LR)
+    check_sparse_step("p7 tiered adagrad", ada_table, want, old, touched)
+    if not torch.allclose(ada_acc, acc, rtol=1e-4, atol=1e-12):
+        raise SystemExit("[p7 tiered adagrad] the accumulator disagrees")
+    del ada_table, want, acc, ada_acc
+    torch.cuda.empty_cache()
+
+    # The split beside the untiered gradient (each with its sort), in
+    # turns; the head product and K3 on the masked COO alone.
+    times = {}
+    for name, fn in (("untiered", untiered), ("split", split),
+                     ("untiered again", untiered), ("split again", split)):
+        times[name] = bench.cuda_time_ms(lambda: fn(idx), iters=10)
+    head_ms = bench.cuda_time_ms(lambda: head_grad(idx, None, gy32, cfg.mxu_head_rows,
+                                                   torch.float32))
+    m_idx, m_sid, _ = masked_coo(idx)
+    f_idx, f_sid, _ = transpose_position_ordered(sid, idx.reshape(-1))
+    buf = torch.zeros((NUM_ROWS, WIDTH), dtype=gy.dtype, device="cuda")
+    k3_masked = bench.cuda_time_ms(lambda: kb(gy, NUM_ROWS, m_idx, m_sid, initial_grad=buf))
+    k3_full = bench.cuda_time_ms(lambda: kb(gy, NUM_ROWS, f_idx, f_sid, initial_grad=buf))
+    print(f"[p7 dense gradient] device ms (CUDA events, L2 flushed), in turns: untiered "
+          f"{times['untiered']:.4f} / {times['untiered again']:.4f}, split "
+          f"{times['split']:.4f} / {times['split again']:.4f}; head product M^T @ grad_y "
+          f"({cfg.mxu_head_rows} rows, fp32) {head_ms:.4f}; K3 on the masked COO "
+          f"({int((m_idx != SENTINEL).sum())} of {m_idx.numel()} positions) "
+          f"{k3_masked:.4f}, on the whole COO {k3_full:.4f}")
+    del buf
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1193,6 +1533,9 @@ def main():
     small_batches = [torch.from_numpy(small_ids.sample(SMALL_BATCH)).cuda()
                      for _ in range(5)]
     big_batches = [torch.from_numpy(b).cuda() for b in batches_np]
+    # The same law without the permutation: ids of a table stored hot-first.
+    hot_idx = torch.from_numpy(PowerLawGenerator(
+        NUM_ROWS - 1, HOTNESS, ALPHA, seed=args.seed + 7, dtype=np.int64).sample(BATCH)).cuda()
     torch.cuda.synchronize()
     print(f"[inputs] {NUM_ROWS} x {WIDTH} fp16 table on the card; ids made on the "
           f"host in {time.perf_counter() - t0:.1f} s; CSR nnz {nnz} of capacity "
@@ -1286,6 +1629,11 @@ def main():
               f"{request_ms:.4f} ms request: the rest, {1 - dev / request_ms:.1%}, "
               f"is host time")
 
+    # 7. The TPU engines' serving paths (ROADMAP P7) on the same kernels.
+    p7_launches, p7_err = phase_p7_serving(table, idx, hot_idx, flat, offsets, csr_w,
+                                           small, small_batches[0], args.seed)
+    errs["K1"] = max(errs["K1"], p7_err)
+
     # Free the serving phase's tables for the training path.
     del big, table, fixed_out, csr_out, big_out, big_batches, small, small_out
     torch.cuda.empty_cache()
@@ -1319,15 +1667,18 @@ def main():
     # 6. K3, the transpose and the steps, timed.
     k3_t = backward_timings(tbag.weight.detach(), idx, flat, offsets, csr_w, dense_gy)
     step_timings(tbag, idx)
+    # 7. The TPU engines' training paths (ROADMAP P7).
+    p7_train = phase_p7_training(tbag, idx, hot_idx, gen)
 
     kernels = []
     for name, source, replaces, t, n in (
         ("K1 fixed_forward_kernel", "forward.cu", "pallas_forward.py:55", fixed_t,
-         launches["K1"] + train_launches["K1"]),
+         launches["K1"] + train_launches["K1"] + p7_launches["K1"] + p7_train["K1"]),
         ("K2 csr_forward_kernel", "forward.cu", "pallas_forward.py:274", csr_t,
-         launches["K2"] + train_launches["K2"]),
+         launches["K2"] + train_launches["K2"] + p7_launches["K2"]),
         ("K3 coo_backward_kernel", "backward.cu", "pallas_backward.py:58", k3_t,
-         train_launches["K3 full"] + train_launches["K3 compressed"]),
+         train_launches["K3 full"] + train_launches["K3 compressed"]
+         + p7_train["K3 full"] + p7_train["K3 compressed"]),
     ):
         kernels.append({
             "name": name, "route": "cuda",

@@ -7,8 +7,11 @@ fp32-accumulation policy, and sparse optimizers (``train``). The
 fixed-hotness and CSR lookups run on two hand-written CUDA kernels
 (``csrc/forward.cu``), and the backward, a sort by index and a sum of each
 index's run, on a third (``csrc/backward.cu``), for CUDA tensors; CPU
-tensors take a plain PyTorch version. This package imports neither JAX nor
-``cuembed_tpu``; the JAX package is the reference it is tested against.
+tensors take a plain PyTorch version. The JAX package's TPU engines (tiered,
+line-packed narrow, int8; ``ops/tiered.py``, ``ops/narrow.py``,
+``ops/quant.py``) keep their API and results and run on the same kernels.
+This package imports neither JAX nor ``cuembed_tpu``; the JAX package is
+the reference it is tested against.
 """
 
 from cuembed_tpu_torch.models.embedding_bag import EmbeddingBag
@@ -26,6 +29,11 @@ from cuembed_tpu_torch.ops.lookup_torch import (
     embedding_backward_compressed_torch,
     embedding_backward_torch,
     embedding_forward_torch,
+)
+from cuembed_tpu_torch.ops.tiered import (
+    TieredConfig,
+    csr_combine_config,
+    tiered_forward,
 )
 from cuembed_tpu_torch.ops.transforms import (
     compact_sparse_indices,
@@ -65,6 +73,9 @@ __all__ = [
     "combine_coefficients",
     "embedding_lookup",
     "embedding_lookup_csr",
+    "TieredConfig",
+    "csr_combine_config",
+    "tiered_forward",
     "embedding_forward_torch",
     "embedding_forward_cuda",
     "embedding_forward_cuda_csr",

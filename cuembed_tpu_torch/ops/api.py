@@ -6,8 +6,13 @@ Same signatures as the JAX package. The lookup is a
 ``(table, indices, offsets, weights)``, and its backward flattens the lookup
 to a COO, sorts it by index (``transforms.transpose``) and sums each index's
 run on K3 (``dispatch.backward``), deterministically and without atomics.
-Gradients flow to the table and to the per-lookup weights; indices and
-offsets have none.
+A ``tiered_cfg`` changes no gradient, so the backward takes K3 over the
+whole COO with or without one: the JAX backward's split into a head product
+and a sum of the rest (kept as
+:func:`~cuembed_tpu_torch.ops.head.tiered_backward_coo`) gives the same
+gradient more slowly on the card. A CSR config's ``csr_live_cap`` bounds the
+plain version's live entries. Gradients flow to the table and to the
+per-lookup weights; indices and offsets have none.
 """
 
 from __future__ import annotations
@@ -43,9 +48,12 @@ def embedding_lookup(
       mode: SUM / MEAN / CONCAT.
       low_precision_math: accumulate half tables in half precision
         (the reference's ``fp16_math=true``).
-      backend: "auto" or "pallas" (the kernel on CUDA), or "xla" (the plain
-        PyTorch version); see :mod:`cuembed_tpu_torch.ops.dispatch`.
-      tiered_cfg: not supported yet; must be None.
+      backend: "auto" or "pallas" (the kernel on CUDA), "xla" (the plain
+        PyTorch version), "tiered" or "narrow" (the TPU engines' routes, on
+        the same kernels); see :mod:`cuembed_tpu_torch.ops.dispatch`.
+      tiered_cfg: a :class:`~cuembed_tpu_torch.ops.tiered.TieredConfig`;
+        with ``backend="tiered"`` it selects the tiered forward. It
+        changes no result, forward or backward.
       remap: optional ``[num_categories]`` category->row translation,
         applied to ``indices`` before the lookup.
 
@@ -149,15 +157,13 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
     """Table and weights gradients: flatten to a COO, sort it by index, sum
     the runs (``dispatch.backward``), and dot each looked-up row with its
     ``grad_y`` row for the weights."""
-    mode, low_precision_math, backend, _ = cfg
+    mode, low_precision_math, backend, tiered = cfg
     num_categories, width = table.shape
     if num_categories >= 2**31:
         raise NotImplementedError(
             "backward for tables with >= 2**31 rows is unsupported: the sparse "
             "COO path keeps the int32-max sentinel; use forward-only lookups"
         )
-    # The tiered branch (api.py:239-266) is unreachable: dispatch.forward
-    # raises for tiered_cfg and the TPU engines (ROADMAP P7).
     acc_dt = accumulation_dtype(table.dtype, low_precision_math)
     device = table.device
 
@@ -209,6 +215,10 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
     grad_table = None
     if need_table:
         t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+        # CSR: a calibrated live capacity bounds the work (no result change).
+        live_cap = (tiered.csr_live_cap
+                    if tiered is not None and offsets is not None
+                    and tiered.csr_live_cap > 0 else None)
         grad_table = dispatch.backward(
             grad_rows_in.contiguous(),
             num_categories,
@@ -218,6 +228,7 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
             nnz=nnz,
             backend=backend,
             accumulation_dtype=acc_dt,
+            live_cap=live_cap,
         )
 
     # --- Gradient w.r.t. weights (an extension beyond the reference) -------

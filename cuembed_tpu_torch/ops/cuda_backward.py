@@ -184,22 +184,33 @@ def embedding_backward_cuda_compressed(
     *,
     nnz=None,
     live_cap: int | None = None,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> CompressedGrad:
     """Compressed gradient on K3 (arguments as
     :func:`~cuembed_tpu_torch.ops.lookup_torch.embedding_backward_compressed_torch`):
     run ``r`` of the live prefix, out-of-range runs included, goes to
-    ``rows[r]`` and ``unique_indices[r]``; the rest is zero."""
+    ``rows[r]`` and ``unique_indices[r]``; the rest is zero, or keeps
+    ``out``'s values."""
     _check_coo(grad_y, transpose_indices, transpose_sample_ids, transpose_weights)
-    tensors = [grad_y, transpose_indices, transpose_sample_ids] + (
-        [transpose_weights] if transpose_weights is not None else [])
+    cap, width = transpose_indices.shape[0], grad_y.shape[1]
+    if out is not None and (
+        tuple(out[0].shape) != (cap, width) or out[0].dtype != grad_y.dtype
+        or tuple(out[1].shape) != (cap,) or out[1].dtype != transpose_indices.dtype
+    ):
+        raise ValueError(f"out must be [{cap}, {width}] of {grad_y.dtype} rows and "
+                         f"[{cap}] of {transpose_indices.dtype} indices")
+    tensors = [grad_y, transpose_indices, transpose_sample_ids] + [
+        t for t in (transpose_weights, *(out or ())) if t is not None]
     if not _check_placement(tensors):
         return embedding_backward_compressed_torch(
             grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
-            nnz=nnz, live_cap=live_cap,
+            nnz=nnz, live_cap=live_cap, out=out,
         )
-    cap, width = transpose_indices.shape[0], grad_y.shape[1]
-    rows = torch.zeros((cap, width), dtype=grad_y.dtype, device=grad_y.device)
-    uniq = torch.zeros_like(transpose_indices)
+    if out is None:
+        rows = torch.zeros((cap, width), dtype=grad_y.dtype, device=grad_y.device)
+        uniq = torch.zeros_like(transpose_indices)
+    else:
+        rows, uniq = out
     live = _live(nnz, cap)
     if live == 0:
         return CompressedGrad(rows, uniq, torch.zeros((), dtype=torch.int64,

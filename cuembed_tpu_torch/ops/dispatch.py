@@ -5,12 +5,30 @@ The JAX backend names carry over so that callers do not change:
 
 * ``"auto"`` and ``"pallas"``: the hand-written kernels (K1 fixed, K2 CSR,
   K3 backward) for CUDA tensors, the plain PyTorch version for CPU tensors;
-* ``"xla"``: the plain PyTorch version on every device.
+* ``"xla"``: the plain PyTorch version on every device;
+* ``"tiered"``: :func:`~cuembed_tpu_torch.ops.tiered.tiered_forward` with
+  the caller's ``tiered_cfg`` or the JAX package's automatic one, which
+  serves the whole table through K1 and K2;
+* ``"narrow"``: a narrow table (``128 % width == 0``), served as it
+  stands on K1 and K2 again.
 
-Unlike the TPU, where the Pallas backward was opt-in, K3 is the ``"auto"``
-backward on CUDA for every width and storage dtype. CONCAT is a pure gather
-and goes to ``index_select`` on every device. The TPU engines
-(``"tiered"``, ``"narrow"``, a ``tiered_cfg``) are not ported.
+The ``ValueError`` of each refused call follows the JAX dispatcher:
+``"narrow"`` refuses a width that does not pack, and ``"tiered"`` refuses a
+raw narrow table too large to pack inline (the JAX package's layout bound,
+:data:`NARROW_INLINE_PACK_BYTES`), CONCAT, and a table its automatic config
+would not tier. The JAX dispatcher line-packs a small raw narrow table for
+the call, because TPU arrays are padded to 128 lanes; on the card that
+repack would change no result, so a raw narrow table goes straight to K1
+and K2 under every backend (packed storage is
+:func:`~cuembed_tpu_torch.ops.narrow.narrow_lookup` and
+``EmbeddingBag(layout="packed")``). ``"auto"`` with a ``tiered_cfg`` serves
+through K1 and K2, as the JAX package off the TPU serves it through its
+plain path; the config changes no gradient either
+(:mod:`~cuembed_tpu_torch.ops.api`). The JAX package's hint about a large
+table served without tiering concerns the TPU only and is not emitted.
+Unlike the TPU, where the Pallas backward was opt-in, K3 is the backward of
+every backend but ``"xla"`` on CUDA. CONCAT is a pure gather and goes to
+``index_select`` on every device.
 """
 
 from __future__ import annotations
@@ -18,24 +36,39 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.ops import cuda_backward, cuda_forward
+from cuembed_tpu_torch.ops import narrow as narrow_mod
 from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
     embedding_backward_compressed_torch,
     embedding_backward_torch,
     embedding_forward_torch,
 )
+from cuembed_tpu_torch.ops.tiered import TieredConfig, auto_config, tiered_forward
 from cuembed_tpu_torch.types import CombineMode
 
 BACKENDS = ("auto", "pallas", "xla", "tiered", "narrow")
 
+# The JAX package's bound (its layout default) on the lane-padded bytes of a
+# raw narrow table that it packs inline for one call; "tiered" refuses a
+# larger one, as the JAX dispatcher does.
+NARROW_INLINE_PACK_BYTES = 8 * 1024 * 1024
 
-def _check_backend(backend, tiered_cfg=None):
+
+def _check_backend(backend):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend}")
-    if backend in ("tiered", "narrow") or tiered_cfg is not None:
-        raise NotImplementedError(
-            "the tiered and narrow engines are not ported yet (ROADMAP P7)"
-        )
+
+
+def tiered_auto_config(table, indices, offsets, mode) -> TieredConfig | None:
+    """The JAX package's automatic tiered config for this call, or None
+    (CONCAT, or a table within its hot budget)."""
+    if mode == CombineMode.CONCAT:
+        return None
+    if offsets is None:
+        hotness = indices.shape[1]
+    else:
+        hotness = max(1, indices.shape[0] // max(1, offsets.shape[0] - 1))
+    return auto_config(table.shape[0], table.shape[1], table.element_size(), hotness)
 
 
 def forward(
@@ -47,10 +80,41 @@ def forward(
     mode: CombineMode,
     low_precision_math: bool = False,
     backend: str = "auto",
-    tiered_cfg=None,
+    tiered_cfg: TieredConfig | None = None,
 ) -> torch.Tensor:
     """Route a forward lookup to the kernel or the plain version."""
-    _check_backend(backend, tiered_cfg)
+    _check_backend(backend)
+    if narrow_mod.packing_factor(table.shape[1]) > 1:
+        phys_bytes = table.shape[0] * narrow_mod.LANES * table.element_size()
+        if backend == "tiered" and phys_bytes > NARROW_INLINE_PACK_BYTES:
+            raise ValueError(
+                "backend='tiered' on a raw narrow table would repack it "
+                "every call; store it line-packed (pack_narrow) and call "
+                "narrow_lookup(..., tiered_cfg=...) or use "
+                "EmbeddingBag(layout='packed')"
+            )
+        if backend in ("tiered", "narrow"):
+            cfg = tiered_cfg
+            if backend == "tiered" and cfg is None:
+                cfg = tiered_auto_config(table, indices, offsets, mode)
+            narrow_mod._tiers(cfg, indices, offsets, mode)  # the JAX engine's errors
+            backend = "auto"
+    elif backend == "narrow":
+        raise ValueError("backend='narrow' needs width < 128 with 128 % width == 0")
+    if backend == "tiered":
+        cfg = tiered_cfg or tiered_auto_config(table, indices, offsets, mode)
+        if cfg is None:
+            if mode == CombineMode.CONCAT:
+                raise ValueError(
+                    "CONCAT is a pure gather and is never tiered; use "
+                    "backend='auto' or 'xla'"
+                )
+            raise ValueError(
+                "backend='tiered' but the table fits the VMEM budget; "
+                "use backend='auto' (the plain gather is already fast)"
+            )
+        return tiered_forward(table, indices, offsets, weights, mode=mode, cfg=cfg,
+                              low_precision_math=low_precision_math)
     if mode == CombineMode.CONCAT:
         return table.index_select(0, indices.reshape(-1))
     if backend == "xla":
@@ -79,6 +143,7 @@ def backward(
     nnz=None,
     backend: str = "auto",
     accumulation_dtype: torch.dtype | None = None,
+    live_cap: int | None = None,
 ) -> torch.Tensor:
     """Route the full COO backward to K3 or the plain version.
 
@@ -88,14 +153,15 @@ def backward(
     (the JAX backward's cast, sum, cast). K3 always sums in fp32, which is
     at least the accumulation dtype of every table it takes, and rounds
     once, so a half ``grad_y`` needs no [num_categories, width] fp32
-    gradient and no cast.
+    gradient and no cast. ``live_cap`` bounds the live entries; it changes
+    no result (K3 reads only the live prefix anyway).
     """
     _check_backend(backend)
     if backend == "xla" or not grad_y.is_cuda:
         acc = grad_y if accumulation_dtype is None else grad_y.to(accumulation_dtype)
         return embedding_backward_torch(
             acc, num_categories, transpose_indices, transpose_sample_ids,
-            transpose_weights, nnz=nnz,
+            transpose_weights, nnz=nnz, live_cap=live_cap,
         ).to(grad_y.dtype)
     return cuda_backward.embedding_backward_cuda(
         grad_y, num_categories, transpose_indices, transpose_sample_ids,
@@ -110,10 +176,12 @@ def backward_compressed(
     *,
     nnz=None,
     backend: str = "auto",
+    out=None,
 ) -> CompressedGrad:
-    """Route the compressed COO backward to K3 or the plain version."""
+    """Route the compressed COO backward to K3 or the plain version
+    (``out``: see :func:`~cuembed_tpu_torch.ops.lookup_torch.embedding_backward_compressed_torch`)."""
     _check_backend(backend)
     fn = (embedding_backward_compressed_torch if backend == "xla"
           else cuda_backward.embedding_backward_cuda_compressed)
     return fn(grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
-              nnz=nnz)
+              nnz=nnz, out=out)

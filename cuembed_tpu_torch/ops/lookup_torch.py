@@ -211,9 +211,10 @@ def embedding_backward_torch(
     return _add_in_order(grad, t_idx[keep].long(), g[keep])
 
 
-def _compressed_scatter(grad_y, t_idx, t_sid, t_w, live_count, *, out_cap):
+def _compressed_scatter(grad_y, t_idx, t_sid, t_w, live_count, *, out_cap, out=None):
     """Run ``r`` of the live prefix sums into ``rows[r]`` and names its
-    index in ``uniq[r]`` (0 past the runs); returns ``(rows, uniq, n_runs)``."""
+    index in ``uniq[r]`` (0 past the runs, or ``out``'s own values);
+    returns ``(rows, uniq, n_runs)``."""
     k = t_idx.shape[0]
     device = t_idx.device
     live = torch.arange(k, device=device) < (k if live_count is None else int(live_count))
@@ -225,10 +226,13 @@ def _compressed_scatter(grad_y, t_idx, t_sid, t_w, live_count, *, out_cap):
     g = grad_y.index_select(0, t_sid.long())
     if t_w is not None:
         g = g * t_w.to(grad_y.dtype)[:, None]
-    rows = torch.zeros((out_cap, grad_y.shape[1]), dtype=grad_y.dtype, device=device)
+    if out is None:
+        rows = torch.zeros((out_cap, grad_y.shape[1]), dtype=grad_y.dtype, device=device)
+        uniq = torch.zeros((out_cap,), dtype=t_idx.dtype, device=device)
+    else:
+        rows, uniq = out
     keep = live & (ranks < out_cap)
     _add_in_order(rows, ranks[keep], g[keep])
-    uniq = torch.zeros((out_cap,), dtype=t_idx.dtype, device=device)
     starts = boundary & (ranks < out_cap)
     uniq[ranks[starts]] = t_idx[starts]
     return rows, uniq, n_runs
@@ -242,16 +246,74 @@ def embedding_backward_compressed_torch(
     *,
     nnz=None,
     live_cap: int | None = None,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> CompressedGrad:
     """Compressed gradient: one row per run of equal indices in the live
     prefix of the index-sorted COO. Every run counts, an out-of-range one
     (the sentinel) included. The outputs keep the full capacity;
-    ``live_cap`` only limits the work."""
+    ``live_cap`` only limits the work. ``out``: ``(rows, unique_indices)``
+    buffers of that capacity (rows zeroed, ``grad_y``'s dtype; indices of
+    the COO's dtype) to write into, in place; entries past the runs keep
+    their values."""
     cap = transpose_indices.shape[0]
     k = _live_prefix(transpose_indices, nnz, live_cap)
     rows, uniq, n_runs = _compressed_scatter(
         grad_y, transpose_indices[:k], transpose_sample_ids[:k],
         None if transpose_weights is None else transpose_weights[:k],
-        nnz, out_cap=cap,
+        nnz, out_cap=cap, out=out,
     )
     return CompressedGrad(rows=rows, unique_indices=uniq, num_unique=n_runs)
+
+
+def embedding_backward_compressed_tiered(
+    grad_y: torch.Tensor,
+    num_categories: int,
+    indices2d: torch.Tensor,
+    coeff2d: torch.Tensor | None,
+    t_idx: torch.Tensor,
+    t_sid: torch.Tensor,
+    t_coeff: torch.Tensor | None,
+    cfg,
+    *,
+    unique_cap: int | None = None,
+    backend: str = "auto",
+) -> CompressedGrad:
+    """Compressed gradient with the head rows taken as one product, the
+    counterpart of ``lookup_xla.embedding_backward_compressed_tiered``.
+
+    Inputs as :func:`~cuembed_tpu_torch.ops.head.tiered_backward_coo`: the
+    COO is index-sorted, its head positions (``idx < cfg.mxu_head_rows``)
+    turned into the int32-max sentinel before the sort. Output as
+    :class:`CompressedGrad`, in ``grad_y``'s dtype: first the head rows that
+    any position hits (zero coefficients included), ascending, each
+    ``(M^T @ grad_y)[row]``; then one row per run of the non-sentinel
+    prefix (``dispatch.backward_compressed``: K3 on the card), ascending.
+    ``unique_indices`` past ``num_unique`` are the sentinel, and rows there
+    are zero. The capacity is ``nnz + head_rows``, or ``unique_cap +
+    head_rows`` where that is smaller: then runs past it are dropped and
+    ``num_unique > rows.shape[0]`` flags it.
+
+    The head's row count and the non-sentinel count are read on the host
+    once: they place the non-head runs and keep the sentinel run out.
+    """
+    from cuembed_tpu_torch.ops import dispatch
+    from cuembed_tpu_torch.ops.head import fp32_matmul, head_matrix
+
+    head_rows = min(cfg.mxu_head_rows, num_categories)
+    nnz_cap = t_idx.shape[0]
+    full = nnz_cap + head_rows
+    cap = full if unique_cap is None else min(unique_cap + head_rows, full)
+    device = grad_y.device
+    m, appeared = head_matrix(indices2d, coeff2d, head_rows, grad_y.dtype,
+                              return_appeared=True)
+    g_head = fp32_matmul(m.t(), grad_y)
+    n_head, rest = torch.stack([appeared.sum(), (t_idx != SENTINEL).sum()]).tolist()
+    rows = torch.zeros((full, grad_y.shape[1]), dtype=grad_y.dtype, device=device)
+    uniq = torch.full((full,), SENTINEL, dtype=t_idx.dtype, device=device)
+    rows[:n_head] = g_head[appeared]
+    uniq[:n_head] = torch.nonzero(appeared).squeeze(1).to(t_idx.dtype)
+    span = slice(n_head, n_head + nnz_cap)
+    cg = dispatch.backward_compressed(grad_y, t_idx, t_sid, t_coeff, nnz=rest,
+                                      backend=backend, out=(rows[span], uniq[span]))
+    return CompressedGrad(rows=rows[:cap], unique_indices=uniq[:cap],
+                          num_unique=cg.num_unique + n_head)

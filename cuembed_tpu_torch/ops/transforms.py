@@ -1,12 +1,15 @@
 """Index transforms, the counterpart of ``cuembed_tpu/ops/transforms.py``:
 row-id extraction, the COO transpose (a stable sort by index, tie-broken on
-sample id) and the compressed-gradient remapping. ``torch.sort`` is the
-sort; none of these needs a kernel of its own.
+sample id) and the compressed-gradient remapping; and the CSR densifier
+``csr_to_fixed`` (``cuembed_tpu/ops/pallas_forward.py``). ``torch.sort`` is
+the sort; none of these needs a kernel of its own.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cuembed_tpu_torch.types import CombineMode
 
 
 def extract_row_ids_from_fixed(
@@ -112,3 +115,35 @@ def compact_sparse_indices(
     out = torch.full_like(sorted_indices, fill_value or 0)
     out[remapped_indices.long()] = sorted_indices
     return out
+
+
+def csr_to_fixed(indices: torch.Tensor, offsets: torch.Tensor,
+                 weights: torch.Tensor | None = None, *, mode: CombineMode = CombineMode.SUM):
+    """Densify a CSR problem into a fixed layout and a coefficient mask.
+
+    Returns ``(dense_indices [batch, capacity] int32, coeff [batch,
+    capacity] float32)``: sample ``s``'s ``r``-th position lands at ``[s,
+    r]``. Empty slots, and the padding past ``offsets[-1]``, point at row 0
+    with coefficient 0. MEAN's ``1/h_s`` (0 for an empty sample) is folded
+    into the coefficients. The JAX function's outputs, dtypes included.
+    """
+    batch = offsets.shape[0] - 1
+    cap = indices.shape[0]
+    device = indices.device
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    pos = torch.arange(cap, device=device)
+    sample = extract_row_ids_from_csr(offsets, indices).long()
+    keep = sample < batch  # no sample to land in (batch 0), as JAX drops it
+    sample, pos = sample[keep], pos[keep]
+    rank = pos - offsets.long()[sample]
+    live = pos < offsets[-1]
+    dense_idx = torch.zeros((batch, cap), dtype=torch.int32, device=device)
+    dense_idx[sample, rank] = torch.where(live, indices[keep], 0).to(torch.int32)
+    w = (weights.to(torch.float32)[keep] if weights is not None
+         else torch.ones(pos.shape, dtype=torch.float32, device=device))
+    coeff = torch.zeros((batch, cap), dtype=torch.float32, device=device)
+    coeff[sample, rank] = torch.where(live, w, 0.0)
+    if mode == CombineMode.MEAN:
+        inv = torch.where(counts == 0, 0.0, 1.0 / counts.clamp(min=1).to(torch.float32))
+        coeff = coeff * inv[:, None]
+    return dense_idx, coeff

@@ -15,9 +15,17 @@ apply the embedding gradient sparsely instead:
   and update one row per distinct index (``index_add_`` / ``index_copy_``
   on unique indices, so the result is deterministic on the card).
 
+A ``tiered_cfg`` matters to SGD and AdaGrad only under ``overflow="drop"``,
+where it bounds the updates as the JAX functions do: the rows under
+``mxu_head_rows`` then take one fp32 product ``M^T @ grad_y`` and the
+others come from K3 over the COO with the head positions masked
+(``lookup_torch.embedding_backward_compressed_tiered``), cut at the
+config's capacities. Under the default ``overflow="fallback"`` the JAX
+split gives the same update as the untiered sums, which are faster on the
+card, so the config is not used.
+
 Updates happen in place on the tensors passed in, which are returned, as
-the JAX functions return the new arrays. The tiered branches of the JAX
-module (``tiered_cfg``) are not ported yet (ROADMAP P7).
+the JAX functions return the new arrays.
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.ops import dispatch
-from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
+from cuembed_tpu_torch.ops.head import nonhead_capacity
+from cuembed_tpu_torch.ops.lookup_torch import (
+    SENTINEL,
+    embedding_backward_compressed_tiered,
+)
 from cuembed_tpu_torch.ops.transforms import (
     extract_row_ids_from_csr,
     transpose_position_ordered,
@@ -79,18 +91,26 @@ def _flatten_coo(indices, offsets, weights, mode, acc_dt):
     return flat_idx, sample_ids, coeff
 
 
-def _no_tiering(tiered_cfg):
-    if tiered_cfg is not None:
-        raise NotImplementedError(
-            "tiered sparse updates are not ported yet (ROADMAP P7)"
-        )
+def _head_rows(table, tiered_cfg, offsets, mode) -> int:
+    """Rows the tiered update takes as the head product (0: untiered), as
+    the JAX functions choose them: fixed hotness, pooled, with a config."""
+    if tiered_cfg is None or offsets is not None or mode == CombineMode.CONCAT:
+        return 0
+    return min(tiered_cfg.mxu_head_rows, table.shape[0])
 
 
 def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
-              drop_zero_coeff):
+              drop_zero_coeff, tiered_cfg=None, drop_past_capacity=False,
+              unique_cap=None):
     """Per-row gradient sums of the batch: ``(rows, uniq)`` for the distinct
     in-range indices, ascending. With ``drop_zero_coeff``, positions whose
-    coefficient is 0 (CSR padding, zero weights) touch no row."""
+    coefficient is 0 (CSR padding, zero weights) touch no row (a head row
+    they hit keeps a zero gradient). ``drop_past_capacity`` keeps only the
+    first ``nonhead_capacity`` sorted non-head positions and ``unique_cap``
+    only the first ``unique_cap`` non-head rows (the JAX functions'
+    ``overflow="drop"``): with a ``tiered_cfg`` (see :func:`_head_rows`)
+    either takes the head rows from the head product. Without a cut the
+    config changes no sum, and the sums are untiered."""
     gy = grad_y.to(torch.float32)
     if weights is None and offsets is None and mode == CombineMode.MEAN:
         gy = gy * (1.0 / indices.shape[1])  # the uniform coefficient folds into gy
@@ -98,10 +118,23 @@ def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
                                                torch.float32)
     if drop_zero_coeff and coeff is not None:
         flat_idx = torch.where(coeff != 0, flat_idx, torch.full_like(flat_idx, SENTINEL))
-    t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
-    cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
-                                      backend=backend)
-    nu = int(cg.num_unique)
+    head = _head_rows(table, tiered_cfg, offsets, mode)
+    if head > 0 and (drop_past_capacity or unique_cap is not None):
+        masked = torch.where(flat_idx < head, SENTINEL, flat_idx)
+        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, masked, coeff)
+        if drop_past_capacity:
+            k = nonhead_capacity(tiered_cfg, t_idx.shape[0])
+            t_idx, t_sid = t_idx[:k], t_sid[:k]
+            t_coeff = None if t_coeff is None else t_coeff[:k]
+        cg = embedding_backward_compressed_tiered(
+            gy.contiguous(), table.shape[0], indices,
+            None if coeff is None else coeff.reshape(indices.shape),
+            t_idx, t_sid, t_coeff, tiered_cfg, unique_cap=unique_cap, backend=backend)
+    else:
+        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+        cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
+                                          backend=backend)
+    nu = min(int(cg.num_unique), cg.rows.shape[0])
     rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
     # The sentinel run (and any out-of-range index) updates nothing.
     keep = (uniq >= 0) & (uniq < table.shape[0])
@@ -124,11 +157,14 @@ def sgd_sparse_update(
 ) -> torch.Tensor:
     """One SGD step on the table, applied sparsely and in place:
     ``table - lr * dense_grad`` (up to fp reassociation) without the dense
-    gradient. ``overflow`` only matters on the tiered path."""
-    del overflow
-    _no_tiering(tiered_cfg)
+    gradient. ``overflow`` (with a ``tiered_cfg`` only): ``"fallback"`` is
+    exact, and the config then changes nothing; ``"drop"`` applies only the
+    first ``nonhead_capacity`` sorted non-head positions, with the head
+    rows' gradient from the head product, as the JAX function drops an
+    overflowing batch's coldest updates."""
     rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
-                           drop_zero_coeff=False)
+                           drop_zero_coeff=False, tiered_cfg=tiered_cfg,
+                           drop_past_capacity=overflow == "drop")
     return table.index_add_(0, uniq, (-lr * rows).to(table.dtype))
 
 
@@ -162,13 +198,15 @@ def rowwise_adagrad_sparse_update(
       ``accum[r] += mean(G_r^2)``;
       ``table[r] -= lr * G_r / sqrt(accum[r] + eps)``.
     Untouched rows, and rows whose only lookups have coefficient 0, keep
-    their state and values. ``unique_cap`` and ``overflow`` bound the
-    tiered path's buffers; here they do not change the result.
+    their state and values. ``unique_cap`` bounds a ``tiered_cfg``'s
+    non-head rows: under ``overflow="fallback"`` (default) a batch with
+    more is served exactly, and the config then changes nothing; under
+    ``"drop"`` its rows past the bound are dropped, with the head rows'
+    gradient from the head product, as in the JAX function.
     """
-    del unique_cap, overflow
-    _no_tiering(tiered_cfg)
     rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
-                           drop_zero_coeff=True)
+                           drop_zero_coeff=True, tiered_cfg=tiered_cfg,
+                           unique_cap=unique_cap if overflow == "drop" else None)
     new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
     accum.index_copy_(0, uniq, new_acc)
     scale = -lr / torch.sqrt(new_acc + eps)

@@ -147,17 +147,47 @@ def test_validation_errors_match_jax(problem, case):
                 pkg.embedding_lookup_csr(table, indices, offsets, weights, **kw)
 
 
+TIERED_CFG = tce.TieredConfig(hot_rows=64, chunk_elems=20, cold_slots=8,
+                              mxu_head_rows=16, mid_slots=8)
+
+
+def _jcfg(cfg):
+    import dataclasses
+
+    return jce.TieredConfig(**dataclasses.asdict(cfg))
+
+
 @pytest.mark.parametrize("kw", [
-    {"backend": "tiered"}, {"backend": "narrow"}, {"tiered_cfg": object()},
+    {"backend": "tiered"}, {"backend": "narrow"}, {"tiered_cfg": TIERED_CFG},
 ], ids=["tiered", "narrow", "tiered_cfg"])
 def test_tpu_engines_not_ported(problem, kw):
-    table, idx, _, offsets, flat, _, _ = problem
-    with pytest.raises(NotImplementedError, match="P7"):
-        tce.embedding_lookup(torch.from_numpy(table), torch.from_numpy(idx), **kw)
-    with pytest.raises(NotImplementedError, match="P7"):
-        tce.embedding_lookup_csr(
-            torch.from_numpy(table), torch.from_numpy(flat),
-            torch.from_numpy(offsets), **kw)
+    """The TPU engines' routes, which raised NotImplementedError before the
+    port took them, now behave as the JAX dispatcher on the same input:
+    "tiered" and "narrow" refuse this small table of width 24 (it fits the
+    hot budget; 24 does not pack) with JAX's ValueErrors, and "tiered" with
+    an explicit config, like a tiered_cfg under "auto", gives JAX's result."""
+    table, idx, weights, offsets, flat, flat_w, _ = problem
+
+    def calls(pkg, backend="auto", tiered_cfg=None):
+        arr = jnp.asarray if pkg is jce else torch.from_numpy
+        ids = _j if pkg is jce else torch.from_numpy
+        cfg = _jcfg(tiered_cfg) if tiered_cfg is not None and pkg is jce else tiered_cfg
+        kw = dict(backend=backend, tiered_cfg=cfg)
+        return (lambda: pkg.embedding_lookup(arr(table), ids(idx), arr(weights), **kw),
+                lambda: pkg.embedding_lookup_csr(arr(table), ids(flat), ids(offsets),
+                                                 arr(flat_w), **kw))
+
+    if "backend" in kw:
+        msg = "fits the VMEM budget" if kw["backend"] == "tiered" else "needs width < 128"
+        for pkg in (jce, tce):
+            for call in calls(pkg, **kw):
+                with pytest.raises(ValueError, match=msg):
+                    call()
+        if kw["backend"] == "narrow":
+            return
+        kw = dict(kw, tiered_cfg=TIERED_CFG)  # an explicit config makes "tiered" serve
+    for want, got in zip(calls(jce, **kw), calls(tce, **kw)):
+        np.testing.assert_allclose(got().numpy(), np.asarray(want()), rtol=1e-6, atol=1e-6)
 
 
 def test_lookup_is_differentiable(problem):

@@ -430,3 +430,180 @@ def test_k3_runs_across_stages_and_tiles(gen, dtype, width):
         assert torch.equal(c[0].rows, c[1].rows)
         assert torch.equal(c[0].rows, want.rows)
         assert torch.equal(c[0].unique_indices, want.unique_indices)
+
+
+# -- the TPU engines' routes (tiered, narrow, int8) on the kernels ---------------
+
+TIERED_CFG = tce.TieredConfig(hot_rows=128, chunk_elems=64, cold_slots=32,
+                              mxu_head_rows=32, mid_slots=32)
+
+
+def _integer_table(gen, V, W, dtype=torch.float32):
+    return torch.randint(-8, 9, (V, W), device="cuda", generator=gen).to(dtype)
+
+
+def test_tiered_forward_runs_k1_and_k2(gen):
+    """backend="tiered" launches K1 (fixed) and K2 (CSR) on the whole table,
+    and equals "auto" and the plain version bit for bit."""
+    table = torch.randn((1000, 256), device="cuda", generator=gen).half()
+    idx = torch.randint(0, 1000, (64, 8), device="cuda", generator=gen)
+    w = torch.rand((64, 8), device="cuda", generator=gen)
+    offsets = torch.tensor([0, 3, 3, 9, 20], device="cuda")
+    flat = torch.randint(0, 1000, (24,), device="cuda", generator=gen)
+    k1, k2 = cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr
+    n1, n2 = k1.launches, k2.launches
+    got = tce.embedding_lookup(table, idx, w, backend="tiered", tiered_cfg=TIERED_CFG)
+    got_csr = tce.embedding_lookup_csr(table, flat, offsets, backend="tiered",
+                                       tiered_cfg=tce.csr_combine_config(1000, 16))
+    assert (k1.launches, k2.launches) == (n1 + 1, n2 + 1)
+    assert torch.equal(got, tce.embedding_lookup(table, idx, w))
+    assert torch.equal(got, embedding_forward_torch(table, idx, None, w))
+    assert torch.equal(got_csr, embedding_forward_torch(table, flat, offsets))
+
+
+def test_narrow_lookup_runs_k1_on_the_view(gen, monkeypatch):
+    """A packed table's lookup hands K1 the packed storage itself (its
+    [ceil(V/k)*k, W] view), and equals the raw table's lookup."""
+    from cuembed_tpu_torch.ops import narrow
+
+    table = torch.randn((1001, 32), device="cuda", generator=gen)
+    packed = narrow.pack_narrow(table)
+    idx = torch.randint(0, 1001, (128, 8), device="cuda", generator=gen)
+    seen = []
+    real = cuda_forward.embedding_forward_cuda
+
+    def spy(t, *args, **kwargs):
+        seen.append((t.data_ptr(), tuple(t.shape)))
+        return real(t, *args, **kwargs)
+
+    spy.launches = 0  # the wrapper counts on the module's name
+    monkeypatch.setattr(cuda_forward, "embedding_forward_cuda", spy)
+    got = narrow.narrow_lookup(packed, 1001, 32, idx, tiered_cfg=TIERED_CFG)
+    assert seen == [(packed.data_ptr(), (1004, 32))]
+    assert torch.equal(got, real(table, idx))
+    bag = tce.EmbeddingBag.from_numpy(table.cpu().numpy(), layout="packed")
+    assert torch.equal(bag(idx), got)
+
+
+def test_tiered_backward_runs_k3(gen):
+    """The tiered backward, the head product plus K3 over the non-head
+    positions (the head masked to the sentinel, which K3 drops), equals the
+    untiered K3 gradient on integer data; the lookup's gradient with a
+    tiered_cfg is the untiered one (one K3 launch over the whole COO)."""
+    from cuembed_tpu_torch.ops.head import tiered_backward_coo
+    from cuembed_tpu_torch.ops.transforms import transpose_position_ordered
+
+    for dtype in (torch.float32, torch.bfloat16):
+        table = _integer_table(gen, 1000, 256, dtype)
+        idx = torch.randint(0, 1000, (256, 8), device="cuda", generator=gen)
+        idx[:, :3] %= 32  # head traffic
+        gy = torch.randint(-3, 4, (256, 256), device="cuda", generator=gen).to(dtype)
+        grads = []
+        for cfg in (TIERED_CFG, None):
+            t = table.clone().requires_grad_()
+            before = cuda_backward.embedding_backward_cuda.launches
+            (tce.embedding_lookup(t, idx, tiered_cfg=cfg) * gy).float().sum().backward()
+            assert cuda_backward.embedding_backward_cuda.launches == before + 1
+            grads.append(t.grad)
+        assert torch.equal(*grads)
+        flat = idx.reshape(-1)
+        masked = torch.where(flat < TIERED_CFG.mxu_head_rows, SENTINEL, flat)
+        sid = torch.arange(flat.numel(), device="cuda", dtype=torch.int32) // 8
+        before = cuda_backward.embedding_backward_cuda.launches
+        split = tiered_backward_coo(gy, 1000, idx, None,
+                                    *transpose_position_ordered(sid, masked), TIERED_CFG,
+                                    accumulation_dtype=torch.float32)
+        assert cuda_backward.embedding_backward_cuda.launches == before + 1
+        assert split.dtype == dtype and torch.equal(split, grads[1])
+
+
+def test_compressed_tiered_keeps_the_sentinel_run_out(gen):
+    """K3's compressed mode keeps out-of-range runs; the tiered compressed
+    gradient bounds it at the non-sentinel count, so the masked head is no
+    unique row: equal to the plain version on the CPU."""
+    from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_compressed_tiered
+    from cuembed_tpu_torch.ops.transforms import transpose_position_ordered
+
+    idx = torch.randint(0, 1000, (256, 8), device="cuda", generator=gen)
+    idx[:, :4] %= 32
+    gy = torch.randint(-3, 4, (256, 128), device="cuda", generator=gen).float()
+    coeff = torch.randint(0, 3, (256, 8), device="cuda", generator=gen).float()
+    flat = torch.where(idx < 32, SENTINEL, idx).reshape(-1)
+    sid = torch.arange(flat.numel(), device="cuda", dtype=torch.int32) // 8
+    coo = transpose_position_ordered(sid, flat, coeff.reshape(-1))
+    before = cuda_backward.embedding_backward_cuda_compressed.launches
+    got = embedding_backward_compressed_tiered(gy, 1000, idx, coeff, *coo, TIERED_CFG)
+    assert cuda_backward.embedding_backward_cuda_compressed.launches == before + 1
+    want = embedding_backward_compressed_tiered(
+        gy.cpu(), 1000, idx.cpu(), coeff.cpu(), *(t.cpu() for t in coo), TIERED_CFG)
+    nu = int(want.num_unique)
+    assert int(got.num_unique) == nu and nu < int(torch.unique(idx).numel()) + 1
+    assert torch.equal(got.unique_indices.cpu(), want.unique_indices)
+    assert torch.equal(got.rows.cpu(), want.rows)
+    assert (got.unique_indices[:nu] != SENTINEL).all()
+
+
+def test_head_product_is_ieee_fp32(gen):
+    """With TF32 allowed, the head product still rounds as fp32 (TF32
+    would keep 10 significand bits: errors near 1e-3)."""
+    from cuembed_tpu_torch.ops.head import head_grad
+
+    idx = torch.randint(0, 64, (4096, 4), device="cuda", generator=gen)
+    gy = torch.randn((4096, 256), device="cuda", generator=gen)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = head_grad(idx, None, gy, 64, torch.float32)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    want = head_grad(idx.cpu(), None, gy.double().cpu(), 64, torch.float64)
+    torch.testing.assert_close(got.double().cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_tiered_sparse_steps_equal_the_cpu(gen):
+    """Tiered SGD and AdaGrad on the card equal the same steps on the CPU,
+    integer data: untiered sums under "fallback", the head product and K3
+    compressed under "drop"."""
+    from cuembed_tpu_torch import train
+
+    table = _integer_table(gen, 1000, 64)
+    idx = torch.randint(0, 1000, (256, 8), device="cuda", generator=gen)
+    idx[:, :3] %= 32
+    gy = torch.randint(-3, 4, (256, 64), device="cuda", generator=gen).float()
+    for step, overflow in (("sgd", "fallback"), ("sgd", "drop"), ("adagrad", "fallback"),
+                           ("adagrad", "drop")):
+        got, want = table.clone(), table.cpu()
+        if step == "sgd":
+            kw = dict(lr=0.5, tiered_cfg=TIERED_CFG, overflow=overflow)
+            train.sgd_sparse_update(got, idx, gy, **kw)
+            train.sgd_sparse_update(want, idx.cpu(), gy.cpu(), **kw)
+        else:
+            kw = dict(lr=0.1, tiered_cfg=TIERED_CFG, overflow=overflow, unique_cap=200)
+            acc = train.rowwise_adagrad_init(1000)
+            acc_cpu = train.rowwise_adagrad_init(1000, device="cpu")
+            train.rowwise_adagrad_sparse_update(got, acc, idx, gy, **kw)
+            train.rowwise_adagrad_sparse_update(want, acc_cpu, idx.cpu(), gy.cpu(), **kw)
+            assert torch.equal(acc.cpu(), acc_cpu)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_int8_lookups_on_the_card(gen):
+    """int8_serving_lookup and tiered_forward(q_head=...) on CUDA tensors
+    against the same functions on the CPU (fp32 sums in the same order)."""
+    from cuembed_tpu_torch.ops import quant
+
+    table = torch.randn((4000, 256), device="cuda", generator=gen)
+    idx = (torch.rand((64, 8), device="cuda", generator=gen) ** 3 * 4000).long()
+    qt = quant.quantize_head(table)
+    assert torch.equal(qt.data.cpu(), quant.quantize_head(table.cpu()).data)
+    got = quant.int8_serving_lookup(qt, idx)
+    want = quant.int8_serving_lookup(quant.QuantizedHead(qt.data.cpu()), idx.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    cfg = tce.TieredConfig(hot_rows=512, chunk_elems=64, cold_slots=64, mxu_head_rows=64,
+                           mid_slots=64)
+    qh = quant.quantize_head(table[:1024])
+    got = tce.tiered_forward(table, idx, cfg=cfg, q_head=qh)
+    want = tce.tiered_forward(table.cpu(), idx.cpu(), cfg=cfg,
+                              q_head=quant.QuantizedHead(qh.data.cpu()))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)

@@ -71,15 +71,18 @@ def _problem(layout, mode, weighted, dtype, integer, seed=0):
     return table, idx, offsets, weights, ct
 
 
-def _jax_grads(table, idx, offsets, weights, ct, mode, lpm):
+def _jax_grads(table, idx, offsets, weights, ct, mode, lpm, tiered=None):
     def loss(t, w):
         if offsets is None:
             out = jce.embedding_lookup(t, jnp.asarray(idx.astype(np.int32)), w,
-                                       mode=jce.CombineMode(mode), low_precision_math=lpm)
+                                       mode=jce.CombineMode(mode), low_precision_math=lpm,
+                                       tiered_cfg=None if tiered is None
+                                       else jce.TieredConfig(**tiered))
         else:
             out = jce.embedding_lookup_csr(
                 t, jnp.asarray(idx.astype(np.int32)), jnp.asarray(offsets.astype(np.int32)),
-                w, mode=jce.CombineMode(mode), low_precision_math=lpm)
+                w, mode=jce.CombineMode(mode), low_precision_math=lpm,
+                tiered_cfg=None if tiered is None else jce.TieredConfig(**tiered))
         return jnp.vdot(out.astype(jnp.float32), jnp.asarray(ct))
     w = None if weights is None else jnp.asarray(weights)
     g_t, g_w = jax.grad(loss, argnums=(0, 1))(jnp.asarray(table), w)
@@ -87,10 +90,11 @@ def _jax_grads(table, idx, offsets, weights, ct, mode, lpm):
             None if g_w is None else np.asarray(g_w).astype(np.float32))
 
 
-def _torch_grads(table, idx, offsets, weights, ct, mode, lpm, backend="auto"):
+def _torch_grads(table, idx, offsets, weights, ct, mode, lpm, backend="auto", tiered=None):
     bag = tce.EmbeddingBag.from_numpy(table, mode=tce.CombineMode(mode), device="cpu")
     w = None if weights is None else torch.from_numpy(weights).requires_grad_()
-    kw = dict(mode=tce.CombineMode(mode), low_precision_math=lpm, backend=backend)
+    kw = dict(mode=tce.CombineMode(mode), low_precision_math=lpm, backend=backend,
+              tiered_cfg=None if tiered is None else tce.TieredConfig(**tiered))
     if offsets is None:
         out = tce.embedding_lookup(bag.weight, torch.from_numpy(idx), w, **kw)
     else:
@@ -148,6 +152,44 @@ def test_grads_match_jax(integer, layout, mode, weighted, dtype, lpm):
     if weights is not None:
         # A dot product over the width in the accumulation type, rounded to
         # fp32 weights.
+        tol_w = 2 * (W + 1) * 2.0**-p * mass_w + _ulp(want_w, torch.float32)
+        assert np.all(np.abs(got_w - want_w) <= tol_w)
+
+
+# A tiered config whose head (rows under 20) the problems' ids hit often.
+TIERED = dict(hot_rows=40, chunk_elems=20, cold_slots=8, mxu_head_rows=20, mid_slots=8)
+
+
+@pytest.mark.parametrize("dtype,lpm", TYPES,
+                         ids=["fp32", "bf16", "fp16", "bf16-lpm", "fp16-lpm"])
+@pytest.mark.parametrize("layout,mode,weighted", CASES,
+                         ids=["sum", "mean", "concat", "weighted", "csr-weighted", "csr-mean"])
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "reals"])
+def test_tiered_grads_match_jax(integer, layout, mode, weighted, dtype, lpm):
+    """With a tiered_cfg, which changes no gradient (the port sums the
+    whole COO), against jax.grad through the JAX package's tiered backward
+    (its head product for pooled fixed lookups), held as
+    test_grads_match_jax holds the untiered ones: integer data bit for bit
+    but for MEAN (its 1/5 terms are inexact, and the head product sums them
+    in another order), the rest to the recursive-sum bound."""
+    table, idx, offsets, weights, ct = _problem(layout, mode, weighted, dtype, integer,
+                                                seed=5)
+    if offsets is None:
+        idx = np.where(np.arange(H) < 2, idx % 20, idx)  # head traffic
+    want_t, want_w = _jax_grads(table, idx, offsets, weights, ct, mode, lpm, TIERED)
+    got_t, got_dtype, got_w = _torch_grads(table, idx, offsets, weights, ct, mode, lpm,
+                                           tiered=TIERED)
+    assert got_dtype == dtype
+    if integer and mode != "mean":
+        np.testing.assert_array_equal(got_t, want_t)
+        if weights is not None:
+            np.testing.assert_array_equal(got_w, want_w)
+        return
+    p = BITS[dtype] if lpm else 24
+    mass_t, mass_w, n = _mass(table, idx, offsets, weights, ct, mode)
+    tol_t = 2 * (n + 1) * 2.0**-p * mass_t + _ulp(want_t, dtype)
+    assert np.all(np.abs(got_t - want_t) <= tol_t)
+    if weights is not None:
         tol_w = 2 * (W + 1) * 2.0**-p * mass_w + _ulp(want_w, torch.float32)
         assert np.all(np.abs(got_w - want_w) <= tol_w)
 

@@ -131,8 +131,11 @@ def test_layouts():
     padded = EmbeddingBag(10, 36, device="cpu", layout="padded")
     raw = EmbeddingBag(10, 36, device="cpu", layout="raw")
     assert padded.weight.shape == raw.weight.shape == (10, 36)
-    with pytest.raises(NotImplementedError, match="P7"):
-        EmbeddingBag(10, 32, device="cpu", layout="packed")
+    # The packed layout keeps the JAX package's [ceil(V/k), k*W] storage.
+    packed = EmbeddingBag(10, 32, device="cpu", layout="packed")
+    assert packed.weight.shape == (3, 128)
+    assert JaxBag(10, 32, layout="packed").init(jax.random.PRNGKey(0)).shape == (3, 128)
+    assert EmbeddingBag(10, 36, device="cpu", layout="packed").weight.shape == (10, 36)
     with pytest.raises(ValueError, match="unknown layout"):
         EmbeddingBag(10, 32, device="cpu", layout="tiled")
 

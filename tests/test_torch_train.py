@@ -184,14 +184,112 @@ def test_sparse_sgd_equals_a_dense_autograd_step():
 
 
 def test_tiered_updates_not_ported():
+    """The tiered SGD and AdaGrad steps, which raised NotImplementedError
+    before the port took them, now equal the JAX tiered steps on the same
+    input (integer data: SGD bit for bit, AdaGrad to its quotient's ulp)."""
     table, idx, _, _, gy = _problem("fixed", "sum", True)
-    args = (torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(gy))
-    with pytest.raises(NotImplementedError, match="P7"):
-        tce.sgd_sparse_update(*args, lr=0.1, tiered_cfg=object())
-    with pytest.raises(NotImplementedError, match="P7"):
-        tce.rowwise_adagrad_sparse_update(args[0], tce.rowwise_adagrad_init(V, device="cpu"),
-                                          *args[1:],
-                                          lr=0.1, tiered_cfg=object())
+    cfg, jcfg = _tiered_cfgs()
+    want = jtrain.sgd_sparse_update(jnp.asarray(table), lr=0.5, tiered_cfg=jcfg,
+                                    **_jargs(idx, None, None, gy, "sum"))
+    got = tce.sgd_sparse_update(torch.from_numpy(table.copy()), lr=0.5, tiered_cfg=cfg,
+                                **_targs(idx, None, None, gy, "sum"))
+    _check(got.numpy(), want, True)
+    jt, ja = jtrain.rowwise_adagrad_sparse_update(
+        jnp.asarray(table), jtrain.rowwise_adagrad_init(V), lr=0.1, tiered_cfg=jcfg,
+        **_jargs(idx, None, None, gy, "sum"))
+    t, a = tce.rowwise_adagrad_sparse_update(
+        torch.from_numpy(table.copy()), tce.rowwise_adagrad_init(V, device="cpu"), lr=0.1,
+        tiered_cfg=cfg, **_targs(idx, None, None, gy, "sum"))
+    _check(t.numpy(), jt, True, rtol_integer=1e-6)
+    _check(a.numpy(), ja, True)
+
+
+# The tiered configs: a head of 10 rows, and non-head slots for half of each
+# chunk of 16 positions, so that "drop" drops.
+TIERED = dict(hot_rows=40, chunk_elems=16, cold_slots=4, mxu_head_rows=10, mid_slots=4)
+
+
+def _tiered_cfgs():
+    return tce.TieredConfig(**TIERED), jce.TieredConfig(**TIERED)
+
+
+def _weighted_fixed(integer, seed=2):
+    """A fixed batch with weights (zeros among them) and head traffic."""
+    rng = np.random.default_rng(seed)
+    table, idx, _, _, gy = _problem("fixed", "sum", integer, seed=seed)
+    idx = np.where(rng.random(idx.shape) < 0.4, rng.integers(0, 10, idx.shape), idx)
+    w = (rng.choice([0.0, 0.5, 1.0], idx.shape) if integer
+         else rng.random(idx.shape)).astype(np.float32)
+    return table, idx, w, gy
+
+
+TIERED_CASES = ["sum", "mean", "weighted"]
+
+
+def _tiered_problem(case, integer):
+    if case == "weighted":
+        return _weighted_fixed(integer)
+    table, idx, _, _, gy = _problem("fixed", case, integer, seed=3)
+    idx[:, 0] = np.arange(B) % 10  # head traffic
+    return table, idx, None, gy
+
+
+@pytest.mark.parametrize("overflow", ["fallback", "drop"])
+@pytest.mark.parametrize("case", TIERED_CASES)
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "reals"])
+def test_tiered_sgd_matches_jax(integer, case, overflow):
+    """The head rows from M^T @ grad_y, the rest from K3's compressed mode
+    (the plain version here); "drop" keeps the first nonhead_capacity
+    sorted non-head positions, as the JAX function does."""
+    table, idx, w, gy = _tiered_problem(case, integer)
+    mode = "sum" if case == "weighted" else case
+    cfg, jcfg = _tiered_cfgs()
+    want = jtrain.sgd_sparse_update(jnp.asarray(table), lr=0.5, tiered_cfg=jcfg,
+                                    overflow=overflow, **_jargs(idx, None, w, gy, mode))
+    got = tce.sgd_sparse_update(torch.from_numpy(table.copy()), lr=0.5, tiered_cfg=cfg,
+                                overflow=overflow, **_targs(idx, None, w, gy, mode))
+    _check(got.numpy(), want, integer)
+    if overflow == "drop":  # the drop did drop something
+        full = jtrain.sgd_sparse_update(jnp.asarray(table), lr=0.5, tiered_cfg=jcfg,
+                                        **_jargs(idx, None, w, gy, mode))
+        assert not np.array_equal(np.asarray(full), np.asarray(want))
+
+
+@pytest.mark.parametrize("unique_cap,overflow", [(None, "fallback"), (5, "fallback"),
+                                                 (5, "drop")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TIERED_CASES)
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "reals"])
+def test_tiered_rowwise_adagrad_two_steps_match_jax(integer, case, dtype, unique_cap,
+                                                     overflow):
+    table, idx, w, gy = _tiered_problem(case, integer)
+    mode = "sum" if case == "weighted" else case
+    cfg, jcfg = _tiered_cfgs()
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jt, ja = jnp.asarray(table).astype(jdt), jtrain.rowwise_adagrad_init(V)
+    t = torch.from_numpy(table.copy()).to(dtype)
+    a = tce.rowwise_adagrad_init(V, device="cpu")
+    kw = dict(lr=0.1, unique_cap=unique_cap, overflow=overflow)
+    for step in range(2):
+        g = gy * (step + 1)
+        jt, ja = jtrain.rowwise_adagrad_sparse_update(
+            jt, ja, tiered_cfg=jcfg, **kw, **_jargs(idx, None, w, g, mode))
+        tce.rowwise_adagrad_sparse_update(t, a, tiered_cfg=cfg, **kw,
+                                          **_targs(idx, None, w, g, mode))
+    if dtype == torch.float32:
+        _check(t.numpy(), jt, integer, rtol_integer=1e-6)
+    else:
+        _within_bf16_ulp(_f32(t), np.asarray(jt.astype(jnp.float32)))
+    _check(a.numpy(), ja, integer)
+    # Untiered, the same steps give the same state (the split changes sums'
+    # order only), unless "drop" dropped rows.
+    if overflow == "fallback" and integer:
+        a2 = tce.rowwise_adagrad_init(V, device="cpu")
+        t2 = torch.from_numpy(table.copy()).to(dtype)
+        for step in range(2):
+            tce.rowwise_adagrad_sparse_update(t2, a2, lr=0.1,
+                                              **_targs(idx, None, w, gy * (step + 1), mode))
+        assert torch.equal(a, a2)
 
 
 def test_bf16_table_dtype_is_kept():

@@ -91,6 +91,29 @@ def test_transpose_masked_compact_matches_jax(slots, weighted):
             np.testing.assert_array_equal(g.numpy()[:k], np.asarray(wnt)[:k])
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_transpose_masked_compact_any_sample_order(weighted):
+    """Sample ids that fall with the position: equal to the two-key
+    transpose on every non-sentinel entry (its contract, for any COO)."""
+    rng = np.random.default_rng(62)
+    n, head, V = 1024, 40, 400
+    idx = rng.integers(0, V, n).astype(np.int32)
+    masked = np.where(idx < head, SENTINEL, idx).astype(np.int32)
+    sid = rng.permutation(n).astype(np.int32) // 4
+    w = rng.standard_normal(n).astype(np.float32) if weighted else None
+    want = jt.transpose(jnp.asarray(sid), jnp.asarray(masked),
+                        None if w is None else jnp.asarray(w))
+    got = tt.transpose_masked_compact(
+        torch.from_numpy(sid), torch.from_numpy(masked),
+        None if w is None else torch.from_numpy(w), chunk_elems=64, nonhead_slots=56)
+    k = int((masked != SENTINEL).sum())
+    for g, wnt in zip(got, want):
+        if wnt is None:
+            assert g is None
+        else:
+            np.testing.assert_array_equal(g.numpy()[:k], np.asarray(wnt)[:k])
+
+
 @pytest.mark.parametrize("case", ["golden", "random", "single", "empty"])
 def test_compressed_grad_indices_match_jax(case):
     rng = np.random.default_rng(3)
