@@ -73,7 +73,30 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    untiered K3 gradient bit for bit on integer ``grad_y``, and tiered sparse
    SGD and AdaGrad steps against the untiered ones. Each is timed beside
    the kernel route it stands for.
-8. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
+8. Tables, collections, fused groups and models (ROADMAP P8, P9) on the
+   same kernels, each call counted and the plain versions forbidden. At
+   config 4, an ``EmbeddingTable`` (10M x 256 bf16) calibrated on 4
+   batches: its lookups (the remap on the card, host-remapped ids, config
+   3's weighted CSR) each launch K1 or K2 once and equal the lookups before
+   the reorder bit for bit; a row-wise AdaGrad step on its storage launches
+   K3 compressed and is held to the plain path; ``resize_table`` grows and
+   shrinks it with its state. At ``DLRMConfig``'s defaults (8 tables of
+   100K x 64 fp32, hotness 8, batch 65536): ``fused_lookup`` launches K1
+   once and equals the 8 ``EmbeddingCollection.apply`` lookups and the
+   plain path bit for bit; ``fused_adagrad_update`` launches K3 once, and
+   it, the per-table updates and the plain path's update of the fused
+   table are each held to the float64 step (``check_fp32_step``: the
+   step's change under the fp32 row sums' recursive-sum bound). The DLRM,
+   fused and per-table, beside a per-table model on the plain path, from
+   one numpy parameter set: the forward against the plain path, 5
+   ``sgd_step``s (K3 full) whose losses agree with the plain path's, each
+   step's host and device ms, and the tables after the first step held to
+   the float64 step. Last ``examples/train_dlrm_torch.py`` with its
+   defaults (examples/s, and whether the native host library loaded;
+   nothing builds it here), then a collection at its shapes: one lookup
+   bit for bit and one AdaGrad update held to the float64 step, beside
+   the plain path.
+9. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
@@ -103,7 +126,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import cuembed_tpu_torch as tce
-from cuembed_tpu_torch import train
+from cuembed_tpu_torch import native, train
+from cuembed_tpu_torch import fused as fused_mod
+from cuembed_tpu_torch.models import DLRM, DLRMConfig
+from cuembed_tpu_torch.models.dlrm import (bce_with_logits, interaction,
+                                           params_from_numpy)
 from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward, dispatch, narrow, quant
 from cuembed_tpu_torch.ops import tiered as tiered_mod
 from cuembed_tpu_torch.ops.head import head_grad, tiered_backward_coo
@@ -113,6 +140,7 @@ from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_torch as plain
 from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
 from cuembed_tpu_torch.ops.transforms import transpose, transpose_position_ordered
 from cuembed_tpu_torch.utils import benchmarking as bench
+from cuembed_tpu_torch.types import init_table_
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
 
 # Flagship sizes (BASELINE.json configs 2 and 3, bench.py).
@@ -200,7 +228,8 @@ def check_sparse_step(name, got, want, old, touched):
     """One sparse step of a bf16 table on the K3 path (``got``) against the
     plain path (``want``), both from the same table, whose rows at
     ``touched`` were ``old``. ``got`` and ``want`` are each the whole
-    table, or its rows at ``touched`` when it has as many rows.
+    table, or its rows at ``touched`` when it has as many rows. (An fp32
+    table: ``check_fp32_step``.)
 
     Each path adds its fp32 update u to the table as ``old + bf16(u)``,
     rounded to bf16. The two paths' u differ by the order of their fp32
@@ -257,6 +286,36 @@ def plain_path_forbidden(*modules):
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+COUNTED = (cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr,
+           cuda_backward.embedding_backward_cuda,
+           cuda_backward.embedding_backward_cuda_compressed)
+
+
+def zero_counts():
+    for k in COUNTED:
+        k.launches = 0
+
+
+def launch_counts() -> tuple:
+    """The launch counts of K1, K2, K3 full and K3 compressed, in that order."""
+    return tuple(k.launches for k in COUNTED)
+
+
+@contextlib.contextmanager
+def counted(expect, name):
+    """Set the counts to 0, run the body, and fail unless it launched
+    exactly ``expect`` of K1, K2, K3 full and K3 compressed (in that order).
+    Every phase counts its launches so, and returns them in that order."""
+    zero_counts()
+    yield
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if got != tuple(expect):
+        raise SystemExit(f"[{name}] launched (K1, K2, K3 full, K3 compressed) "
+                         f"{got}, expected {tuple(expect)}")
+    print(f"[{name}] launches (K1, K2, K3 full, K3 compressed): {got}")
 
 
 def phase_build():
@@ -521,16 +580,82 @@ def float64_runs(gy, t_idx, t_sid, coeff, live, num_rows=None):
     return uniq, exact, mass, count
 
 
-def sum_error_ratio(got, exact, mass, count, sum_bits):
-    """max |got - exact| over its bound: a recursive sum of n terms (and one
+def sum_bound(exact, mass, count, sum_bits, out_dtype):
+    """The error bound of a recursive sum of ``count`` terms (and one
     product per term) with unit roundoff 2^-sum_bits, then one rounding to
-    ``got``'s type; at most 1 means within the bound."""
+    ``out_dtype``, about the float64 sum ``exact`` of terms whose
+    magnitudes sum to ``mass``."""
+    tiny = torch.finfo(out_dtype).tiny
+    return ((count + 2) * (2.0**-sum_bits * mass + tiny)
+            + 2.0**-BITS[out_dtype] * exact.abs())
+
+
+def sum_error_ratio(got, exact, mass, count, sum_bits):
+    """max |got - exact| over its bound (``sum_bound`` in ``got``'s type);
+    at most 1 means within the bound."""
     if got.numel() == 0:
         return 0.0
-    tiny = torch.finfo(got.dtype).tiny
-    tol = ((count + 2) * (2.0**-sum_bits * mass + tiny)
-           + 2.0**-BITS[got.dtype] * exact.abs())
+    tol = sum_bound(exact, mass, count, sum_bits, got.dtype)
     return ((got.double() - exact).abs() / tol).max().item()
+
+
+def check_fp32_step(name, after, before, uniq, sums, lr, acc=None, eps=1e-8):
+    """One sparse step of an fp32 table from ``before`` on each path of
+    ``after`` ({label: table after}, one of them "plain path"), held to the
+    float64 step from the float64 row sums ``sums`` = (exact, mass, count)
+    of the rows ``uniq``: SGD, ``p - lr * g``, or with ``acc`` =
+    (accumulator before, {label: accumulator after}) row-wise AdaGrad.
+
+    Each path sums a row in fp32 in its own order (K3 once a run, the plain
+    path by atomics). Where a column of a hot row cancels, that order moves
+    the step by many ulps of the result, so a bound relative to the step
+    does not hold there. Allowed: the step's change under the row sums'
+    recursive-sum bound (``sum_bound``), the roundings of the update (of the
+    accumulator, the square root and the scale), and one ulp of the result.
+    Every other row (and its accumulator) must equal ``before``. Returns
+    max |path - plain path| over the touched rows."""
+    exact, mass, count = sums
+    e = sum_bound(exact, mass, count, 24, torch.float32)
+    g, big, u = exact, exact.abs() + e, 2.0 ** -24
+    old = before[uniq].double()
+    if acc is None:
+        ref = old - lr * g
+        tol = lr * e + 4 * u * lr * big
+    else:
+        acc_before, acc_after = acc
+        a0 = acc_before[uniq].double()
+        a = a0 + (g * g).mean(dim=1)
+        da = ((2 * g.abs() * e + e * e).mean(dim=1)
+              + (g.shape[1] + 3) * u * (a0 + (big * big).mean(dim=1)))
+        amin = (a - da).clamp(min=0) + eps
+        smax = lr / torch.sqrt(amin)
+        ds = lr * da / (2 * amin ** 1.5) + 4 * u * smax
+        ref = old - (lr / torch.sqrt(a + eps))[:, None] * g
+        tol = smax[:, None] * e + big * ds[:, None] + 4 * u * smax[:, None] * big
+    tol = tol + ulp((ref.abs() + tol).float()).double()
+    untouched = torch.ones(before.shape[0], dtype=torch.bool, device=before.device)
+    untouched[uniq] = False
+    ratios, ok = {}, True
+    for label, t in after.items():
+        ratios[label] = ((t[uniq].double() - ref).abs() / tol).max().item()
+        ok = ok and torch.equal(t[untouched], before[untouched])
+    acc_ratios = {}
+    if acc is not None:
+        for label, t in acc_after.items():
+            acc_ratios[label] = ((t[uniq].double() - a).abs()
+                                 / (da + ulp(a.float()).double())).max().item()
+            ok = ok and torch.equal(t[untouched], acc_before[untouched])
+    want = after["plain path"][uniq]
+    err = max(max_abs_err(t[uniq], want) for t in after.values())
+    print(f"[{name}] {uniq.numel()} rows against the float64 step, error over its bound "
+          f"(at most 1 passes): {', '.join(f'{k} {v:.3g}' for k, v in ratios.items())}"
+          + (f"; accumulators: {', '.join(f'{k} {v:.3g}' for k, v in acc_ratios.items())}"
+             if acc is not None else "")
+          + f"; max |K3 path - plain path| {err}; untouched rows "
+          f"{'equal' if ok else 'CHANGED'}")
+    if not ok or max(ratios.values()) > 1 or max(acc_ratios.values(), default=0) > 1:
+        raise SystemExit(f"[{name}] a path is off the float64 step")
+    return err
 
 
 def check_full_grad(name, got, init, uniq, exact, mass, count, sum_bits):
@@ -1276,8 +1401,11 @@ def phase_p7_serving(table, idx, hot_idx, flat, offsets, csr_w, small, small_bat
           f"{time.perf_counter() - t0:.1f} s")
 
     seen = []
-    k1.launches = k2.launches = 0
-    with plain_path_forbidden(cuda_forward, dispatch), torch.inference_mode():
+    # The tiered fixed lookup, the packed module, the narrow lookup and the
+    # int8 head twice: K1; the tiered CSR lookup: K2.
+    launches = np.array((5, 1, 0, 0))
+    with (plain_path_forbidden(cuda_forward, dispatch), torch.inference_mode(),
+          counted(launches, "p7 serving")):
         tiered_out = tce.embedding_lookup(table, idx, backend="tiered", tiered_cfg=cfg)
         tiered_csr = tce.embedding_lookup_csr(table, flat, offsets, csr_w,
                                               backend="tiered", tiered_cfg=ccfg)
@@ -1286,12 +1414,6 @@ def phase_p7_serving(table, idx, hot_idx, flat, offsets, csr_w, small, small_bat
             narrow_out = narrow.narrow_lookup(packed, SWEEP_ROWS, SWEEP_WIDTH, narrow_idx)
         q_outs = [tce.tiered_forward(table, ids, cfg=c, q_head=qh)
                   for ids, c in ((idx, cfg), (hot_idx, qcfg))]
-        torch.cuda.synchronize()
-    launches = {"K1": k1.launches, "K2": k2.launches}
-    print(f"[p7 serving] launches: {launches} (tiered fixed, packed module, narrow "
-          f"lookup and the int8 head twice: K1; tiered CSR: K2)")
-    if launches != {"K1": 5, "K2": 1}:
-        raise SystemExit("[p7 serving] a path did not launch its kernel once")
     if seen != [packed.data_ptr()]:
         raise SystemExit(f"[p7 narrow] K1 was handed {seen}, not the packed storage "
                          f"{packed.data_ptr()}")
@@ -1365,8 +1487,7 @@ def phase_p7_training(bag, idx, hot_idx, gen):
     tiered_cfg; then each against its untiered counterpart, the split also
     on ``hot_idx`` (where the head takes about half the positions), and the split
     timed beside the untiered gradient. Returns the launches."""
-    k1 = cuda_forward.embedding_forward_cuda
-    kb, kc = cuda_backward.embedding_backward_cuda, cuda_backward.embedding_backward_cuda_compressed
+    kb = cuda_backward.embedding_backward_cuda
     cfg = tiered_mod.auto_config(NUM_ROWS, WIDTH, 2, HOTNESS)
     weight = bag.weight
     touched = torch.unique(idx)
@@ -1395,8 +1516,11 @@ def phase_p7_training(bag, idx, hot_idx, gen):
             sid, ids.reshape(-1)), accumulation_dtype=torch.float32)
 
     weight.grad = None
-    k1.launches = kb.launches = kc.launches = 0
-    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+    # The dense step with tiered_cfg and the split: K3 full; the split's
+    # compressed form, SGD and AdaGrad: K3 compressed.
+    launches = np.array((1, 0, 2, 3))
+    with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+          counted(launches, "p7 training")):
         bag(idx, tiered_cfg=cfg).backward(gy)
         split_grad = split(idx)
         split_c = embedding_backward_compressed_tiered(gy32, NUM_ROWS, idx, None,
@@ -1404,12 +1528,6 @@ def phase_p7_training(bag, idx, hot_idx, gen):
         train.sgd_sparse_update(sgd_table, idx, sparse_gy, lr=SGD_LR, tiered_cfg=cfg)
         train.rowwise_adagrad_sparse_update(ada_table, ada_acc, idx, sparse_gy,
                                             lr=ADAGRAD_LR, tiered_cfg=cfg)
-        torch.cuda.synchronize()
-    launches = {"K1": k1.launches, "K3 full": kb.launches, "K3 compressed": kc.launches}
-    print(f"[p7 training] launches: {launches} (the dense step with tiered_cfg and the "
-          f"split: K3 full; the split's compressed form, SGD and AdaGrad: compressed)")
-    if launches != {"K1": 1, "K3 full": 2, "K3 compressed": 3}:
-        raise SystemExit("[p7 training] a step did not launch its kernels")
 
     def same(a, b):
         return all(torch.equal(a[r:r + (1 << 20)], b[r:r + (1 << 20)])
@@ -1485,6 +1603,379 @@ def phase_p7_training(bag, idx, hot_idx, gen):
     return launches
 
 
+def dlrm_numpy_params(cfg, seed):
+    """DLRM parameters in the JAX ``init``'s layout, as numpy, from a seed:
+    tables by the package's init law (``types.init_table_``, drawn on the
+    CPU), weights sqrt(2/in) N(0, 1), biases 0."""
+    rng = np.random.default_rng(seed)
+    tgen = torch.Generator().manual_seed(seed)
+    tables = [init_table_(torch.empty((v, cfg.embed_width)), tgen).numpy()
+              for v in cfg.table_sizes]
+
+    def mlp(dims):
+        return [{"w": (rng.standard_normal((dims[i], dims[i + 1])) * (2.0 / dims[i]) ** 0.5)
+                 .astype(np.float32), "b": np.zeros(dims[i + 1], np.float32)}
+                for i in range(len(dims) - 1)]
+    n_feat = cfg.num_tables + 1
+    return {"tables": tables, "bottom": mlp((cfg.dense_features, *cfg.bottom_mlp)),
+            "top": mlp((cfg.bottom_mlp[-1] + n_feat * (n_feat - 1) // 2, *cfg.top_mlp))}
+
+
+def events_ms(fn):
+    """fn() with its host ms to a synchronize and its device ms between
+    CUDA events recorded around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def phase_tables_table(gen, idx, calib_ids, flat, offsets, csr_w):
+    """ROADMAP P8 at config 4: an EmbeddingTable of 10M x 256 bf16, calibrated
+    on 4 batches (its reorder on the card), its lookups (device remap, host
+    remap, CSR) bit for bit equal to the lookups before the reorder, a
+    row-wise AdaGrad step on its storage against the plain path, and
+    resize_table both ways with the AdaGrad state. Returns the launches."""
+    t = tce.EmbeddingTable.create(gen, NUM_ROWS, WIDTH, dtype=torch.bfloat16)
+    ref = tce.embedding_lookup(t.logical_table(), idx)
+    ref_csr = tce.embedding_lookup_csr(t.logical_table(), flat, offsets, csr_w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.calibrate(calib_ids)
+    torch.cuda.synchronize()
+    cfg = t.tiered_cfg
+    print(f"[p8 table] calibrate on {calib_ids.shape[0]} batches of "
+          f"{tuple(calib_ids.shape[1:])} ids: {time.perf_counter() - t0:.2f} s host "
+          f"(counts, order, the reorder on the card, the config): {cfg}")
+    rows = t.remap_indices(idx)
+    touched = torch.unique(rows)
+    with torch.no_grad():
+        gy = train.embedding_grad_y(sparse_loss, ref)
+    accum = train.rowwise_adagrad_init(NUM_ROWS)
+    plain_table, plain_acc, old = t.table.clone(), accum.clone(), t.table[touched]
+    launches = np.zeros(4, np.int64)
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        for name, expect, fn in (
+            ("lookup", (1, 0, 0, 0), lambda: t.lookup(idx)),
+            ("lookup, host remap", (1, 0, 0, 0),
+             lambda: t.lookup(rows, assume_remapped=True)),
+            ("csr lookup", (0, 1, 0, 0), lambda: t.lookup(flat, csr_w, offsets)),
+            ("adagrad", (0, 0, 0, 1), lambda: train.rowwise_adagrad_sparse_update(
+                t.table, accum, rows, gy, lr=ADAGRAD_LR)),
+        ):
+            with counted(expect, f"p8 table {name}"):
+                out = fn()
+            launches += expect
+            if name.startswith(("lookup", "csr")):
+                want = ref_csr if name == "csr lookup" else ref
+                if not torch.equal(out, want):
+                    raise SystemExit(f"[p8 table] {name} differs from the lookup before "
+                                     "the reorder")
+                print(f"[p8 table] {name}: equal to the lookup before the reorder, bit "
+                      f"for bit")
+    train.rowwise_adagrad_sparse_update(plain_table, plain_acc, rows, gy, lr=ADAGRAD_LR,
+                                        backend="xla")
+    err = check_sparse_step("p8 table adagrad", t.table, plain_table, old, touched)
+    if not torch.allclose(accum, plain_acc, rtol=1e-4, atol=1e-12):
+        raise SystemExit("[p8 table adagrad] the accumulator disagrees")
+    del plain_table, plain_acc, old
+    torch.cuda.empty_cache()
+    remap_ms = bench.cuda_time_ms(lambda: t.lookup(idx))
+    pipe_ms = bench.cuda_time_ms(lambda: t.lookup(rows, assume_remapped=True))
+    print(f"[p8 table] device ms (CUDA events, L2 flushed): lookup with the device remap "
+          f"{remap_ms:.4f}, with host-remapped ids {pipe_ms:.4f}")
+
+    extra = NUM_ROWS // 20
+    grown, grown_acc = tce.resize_table(t.table, NUM_ROWS + extra, gen, accum=accum)
+    ok = (all(torch.equal(grown[:NUM_ROWS][r:r + (1 << 20)], t.table[r:r + (1 << 20)])
+              for r in range(0, NUM_ROWS, 1 << 20))
+          and torch.equal(grown_acc[:NUM_ROWS], accum) and not grown_acc[NUM_ROWS:].any()
+          and float(grown[NUM_ROWS:].float().abs().max()) <= (1 + 2 ** -8) / WIDTH ** 0.5
+          and bool(grown[NUM_ROWS:].any()))
+    del grown, grown_acc
+    small, small_acc = tce.resize_table(t.table, NUM_ROWS - extra, accum=accum)
+    ok = ok and small.shape == (NUM_ROWS - extra, WIDTH) and small_acc.shape == (
+        NUM_ROWS - extra,) and small.data_ptr() == t.table.data_ptr()
+    print(f"[p8 resize] grown by {extra} rows (old rows and state kept, new rows in the "
+          f"init range, new state zero) and shrunk by {extra} (the first rows): "
+          f"{'as expected' if ok else 'WRONG'}")
+    if not ok:
+        raise SystemExit("[p8 resize] resize_table is wrong")
+    del t, small, small_acc, accum, gy, ref, ref_csr
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def phase_tables_fused(gen, seed):
+    """ROADMAP P8's collection and fused group at DLRMConfig's defaults (8
+    tables of 100K x 64 fp32, hotness 8, batch 65536): one fused_lookup
+    (K1 once) against EmbeddingCollection.apply (K1 a table), bit for bit
+    under SUM, and both against the plain path; one fused_adagrad_update (K3
+    compressed once) against the plain path's update of the fused table, and
+    against the per-table adagrad_update. Returns the launches and
+    max |kernel - plain| of K1 and of K3."""
+    cfg = DLRMConfig()
+    names = [f"t{i}" for i in range(cfg.num_tables)]
+    coll = tce.EmbeddingCollection([tce.TableConfig(n, v, cfg.embed_width,
+                                                    hotness=cfg.hotness)
+                                    for n, v in zip(names, cfg.table_sizes)])
+    tables = coll.init(gen)
+    ids = {n: torch.from_numpy(PowerLawGenerator(
+        v - 1, cfg.hotness, ALPHA, permute=True, seed=seed + 20 + i,
+        dtype=np.int64).sample(BATCH)).cuda() for i, (n, v) in
+        enumerate(zip(names, cfg.table_sizes))}
+    gys = {n: torch.randn((BATCH, cfg.embed_width), device="cuda", generator=gen)
+           for n in names}
+    fused, spec = tce.fuse_tables(tables, {n: cfg.hotness for n in names})
+    facc = train.rowwise_adagrad_init(spec.total_rows)
+    before, plain_fused, plain_facc = fused.clone(), fused.clone(), facc.clone()
+    accs = coll.adagrad_init()
+    T = len(names)
+    launches = np.array((1 + T, 0, 0, 1 + T))
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        with counted((1, 0, 0, 0), "p8 fused_lookup"):
+            fout = tce.fused_lookup(fused, spec, ids)
+        with counted((T, 0, 0, 0), "p8 collection apply"):
+            per = coll.apply(tables, ids)
+        with counted((0, 0, 0, 1), "p8 fused_adagrad_update"):
+            tce.fused_adagrad_update(fused, facc, spec, ids, gys, lr=ADAGRAD_LR)
+        with counted((0, 0, 0, T), "p8 collection adagrad_update"):
+            coll.adagrad_update(tables, accs, ids, gys, lr=ADAGRAD_LR)
+    # The plain path on the same inputs: the lookups (tables before the
+    # update: the fused copy) and the fused update's rows, as
+    # fused_adagrad_update builds them.
+    plain_out = coll.apply(tce.unfuse_table(plain_fused, spec), ids, backend="xla")
+    big_idx, big_w, big_gy = fused_mod._fused_grad_batch(
+        spec, ids, gys, None, tce.CombineMode.SUM, None)
+    train.rowwise_adagrad_sparse_update(plain_fused, plain_facc, big_idx, big_gy,
+                                        lr=ADAGRAD_LR, weights=big_w, backend="xla")
+    same = all(torch.equal(fout[n], per[n]) for n in names)
+    e1 = max(max_abs_err(fout[n], plain_out[n]) for n in names)
+    print(f"[p8 fused] fused_lookup of {T} tables x {BATCH} x {cfg.hotness}: one K1 "
+          f"launch, {'equal to' if same else 'DIFFERENT from'} the {T} per-table lookups "
+          f"bit for bit; max |K1 - plain path| {e1}")
+    if not same or e1:
+        raise SystemExit("[p8 fused] the fused lookup differs from the per-table ones "
+                         "or from the plain path")
+    # The float64 row sums of the fused COO, the update's reference.
+    runs = float64_runs(big_gy, *fixed_coo(big_idx), None, big_idx.numel())
+    paths = {"K3 path, fused": (fused, facc),
+             "K3 path, per-table": (torch.cat([tables[n] for n in names]),
+                                    torch.cat([accs[n] for n in names])),
+             "plain path": (plain_fused, plain_facc)}
+    e3 = check_fp32_step("p8 fused_adagrad_update", {k: v[0] for k, v in paths.items()},
+                         before, runs[0], runs[1:], ADAGRAD_LR,
+                         acc=(train.rowwise_adagrad_init(spec.total_rows),
+                              {k: v[1] for k, v in paths.items()}))
+    bits = all(torch.equal(x, y) for x, y in zip(paths["K3 path, fused"],
+                                                 paths["K3 path, per-table"]))
+    print(f"[p8 fused] fused_adagrad_update (one K3 launch) against the {T} per-table "
+          f"updates (K3 a table): {'equal bit for bit' if bits else 'not bit for bit'} "
+          f"(tables and state; both within the bound above)")
+    del paths, before, plain_fused, plain_facc, plain_out, big_idx, big_gy, runs
+    f_ms = bench.cuda_time_ms(lambda: tce.fused_lookup(fused, spec, ids))
+    c_ms = bench.cuda_time_ms(lambda: coll.apply(tables, ids))
+    # The updates wait on the host (the count of distinct rows): host ms.
+    fu_ms = statistics.median(timed(lambda: tce.fused_adagrad_update(
+        fused, facc, spec, ids, gys, lr=ADAGRAD_LR))[1] for _ in range(5))
+    cu_ms = statistics.median(timed(lambda: coll.adagrad_update(
+        tables, accs, ids, gys, lr=ADAGRAD_LR))[1] for _ in range(5))
+    print(f"[p8 fused] device ms (CUDA events, L2 flushed): fused_lookup {f_ms:.4f}, the "
+          f"{T} per-table lookups {c_ms:.4f}; host ms to a synchronize, median of 5: "
+          f"fused_adagrad_update {fu_ms:.4f}, the {T} per-table updates {cu_ms:.4f}")
+    device_breakdown("p8 fused_lookup", lambda: tce.fused_lookup(fused, spec, ids))
+    device_breakdown("p8 collection apply", lambda: coll.apply(tables, ids))
+    return launches, e1, e3
+
+
+DLRM_STEPS = 5
+DLRM_LR = 0.01  # DLRM.sgd_step's default
+DLRM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def dlrm_tables(m):
+    """A DLRM's tables, one tensor each."""
+    if m.fused_spec is not None:
+        return list(tce.unfuse_table(m.tables.detach(), m.fused_spec).values())
+    return [bag.weight.detach() for bag in m.bags]
+
+
+def dlrm_grad_y(m, dense, sparse, labels):
+    """The loss's gradient with respect to each pooled lookup of a per-table
+    DLRM, on the plain path: what its first sgd_step sums into the tables."""
+    with torch.enable_grad():
+        emb = [bag(idx, backend="xla").detach().requires_grad_()
+               for bag, idx in zip(m.bags, sparse)]
+        logits = m.top(interaction(m.bottom(dense), emb), final_linear=True)[:, 0]
+        return torch.autograd.grad(torch.mean(bce_with_logits(logits, labels)), emb)
+
+
+def phase_dlrm(gen, seed):
+    """ROADMAP P9: the DLRM at DLRMConfig's defaults, batch 65536, fused and
+    per-table storage from one numpy parameter set, beside a third,
+    per-table model on the plain path: the forward against the plain path
+    on the card; 5 sgd_steps (K1 and K3 full, a launch each a step, or a
+    table a step) whose losses agree with the plain path's; and the tables
+    after the first step, on all three, held to the float64 step (the first
+    step's pooled gradient summed in float64). Returns the launches and
+    max |kernel - plain| of K1 and of K3."""
+    base = DLRMConfig()
+    params = dlrm_numpy_params(base, seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    dense = torch.from_numpy(rng.standard_normal((BATCH, base.dense_features))
+                             .astype(np.float32)).cuda()
+    sparse = [torch.from_numpy(PowerLawGenerator(v - 1, base.hotness, ALPHA, permute=True,
+                                                 seed=seed + 40 + i, dtype=np.int64)
+                               .sample(BATCH)).cuda()
+              for i, v in enumerate(base.table_sizes)]
+    labels = torch.from_numpy(rng.integers(0, 2, BATCH).astype(np.float32)).cuda()
+    T = base.num_tables
+    # The plain path: a per-table model with backend="xla". The first step's
+    # pooled gradient, twice (the towers' backward must repeat its bits for
+    # the float64 sums to be those of every path).
+    ref = DLRM(DLRMConfig())
+    params_from_numpy(ref, params)
+    init = [t.clone() for t in dlrm_tables(ref)]
+    gy = dlrm_grad_y(ref, dense, sparse, labels)
+    if not all(torch.equal(a, b) for a, b in zip(gy, dlrm_grad_y(ref, dense, sparse,
+                                                                  labels))):
+        raise SystemExit("[p9 dlrm] the pooled gradient does not repeat its bits")
+    runs = [float64_runs(g, *fixed_coo(idx), None, idx.numel())
+            for g, idx in zip(gy, sparse)]
+    del gy
+    after1, losses = {}, {}
+    losses["plain path"] = []
+    for step in range(DLRM_STEPS):
+        losses["plain path"].append(
+            ref.sgd_step(dense, sparse, labels, DLRM_LR, backend="xla").item())
+        if step == 0:
+            after1["plain path"] = [t.clone() for t in dlrm_tables(ref)]
+    print(f"[p9 dlrm plain path] {DLRM_STEPS} sgd_steps with backend=\"xla\": losses "
+          f"{losses['plain path']}")
+    del ref
+    launches = np.zeros(4, np.int64)
+    e1 = 0.0
+    for fused in (True, False):
+        name = "fused" if fused else "per-table"
+        m = DLRM(DLRMConfig(fused=fused))
+        params_from_numpy(m, params)
+        n = 1 if fused else T
+        with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+            with counted((n, 0, 0, 0), f"p9 dlrm {name} forward"), torch.no_grad():
+                logits = m(dense, sparse)
+        with torch.no_grad():
+            plain_logits = m(dense, sparse, backend="xla")
+        e = max_abs_err(logits, plain_logits)
+        e1 = max(e1, e)
+        ok = torch.isfinite(logits).all() and torch.allclose(logits, plain_logits, **DLRM_TOL)
+        print(f"[p9 dlrm {name}] forward {tuple(logits.shape)}: max |kernels - plain path| "
+              f"{e} (rtol = atol = 1e-5)")
+        if not ok:
+            raise SystemExit(f"[p9 dlrm {name}] the forward disagrees with the plain path")
+        label = f"K3 path, {name}"
+        losses[label], host, dev = [], [], []
+        with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+            with counted((n * DLRM_STEPS, 0, n * DLRM_STEPS, 0), f"p9 dlrm {name} steps"):
+                for step in range(DLRM_STEPS):
+                    loss, h, d = events_ms(
+                        lambda: m.sgd_step(dense, sparse, labels, DLRM_LR))
+                    losses[label].append(loss.item())
+                    host.append(h)
+                    dev.append(d)
+                    if step == 0:
+                        after1[label] = [t.clone() for t in dlrm_tables(m)]
+        launches += (n * (DLRM_STEPS + 1), 0, n * DLRM_STEPS, 0)
+        print(f"[p9 dlrm {name}] {DLRM_STEPS} sgd_steps (K1 and K3 full, {n} launch(es) "
+              f"each a step): losses {losses[label]}; host ms "
+              f"{[round(x, 4) for x in host]}; "
+              f"device ms between events {[round(x, 4) for x in dev]} (the first step "
+              f"includes one-time set-up)")
+        rel = float(np.max(np.abs(np.array(losses[label]) - losses["plain path"])
+                           / np.abs(losses["plain path"])))
+        print(f"[p9 dlrm {name}] losses against the plain path's: max relative "
+              f"difference {rel:.3g} (rtol = atol = 1e-5)")
+        if not (np.isfinite(losses[label]).all()
+                and np.allclose(losses[label], losses["plain path"], **DLRM_TOL)):
+            raise SystemExit(f"[p9 dlrm {name}] the losses disagree with the plain path")
+        device_breakdown(f"p9 dlrm {name} step",
+                         lambda: m.sgd_step(dense, sparse, labels, DLRM_LR))
+        del m
+        torch.cuda.empty_cache()
+    e3 = 0.0
+    for i, (uniq, *sums) in enumerate(runs):
+        e3 = max(e3, check_fp32_step(f"p9 dlrm table {i}, step 1",
+                                     {k: v[i] for k, v in after1.items()}, init[i], uniq,
+                                     sums, DLRM_LR))
+    same = losses["K3 path, fused"] == losses["K3 path, per-table"]
+    print(f"[p9 dlrm] losses, fused against per-table storage: "
+          f"{'equal' if same else 'not equal'} bit for bit")
+    del after1, init, runs
+    torch.cuda.empty_cache()
+    return launches, e1, e3
+
+
+def phase_trainer(gen):
+    """examples/train_dlrm_torch.py's main with its defaults on the card,
+    counted, the plain versions forbidden; then a collection at its shapes
+    (the defaults, int32 ids as its pipeline makes them), one apply (K1 a
+    table) and one adagrad_update (K3 compressed a table) held to the plain
+    path and to the float64 step. Returns the launches and max |kernel -
+    plain| of K1 and of K3."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "train_dlrm_torch.py")
+    spec = importlib.util.spec_from_file_location("train_dlrm_torch", path)
+    trainer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trainer)
+    d = trainer.parse_args([])
+    n = d.steps * d.tables
+    launches = np.array((n, 0, 0, n))
+    with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+          counted(launches, "p9 trainer")):
+        rate = trainer.main([])
+    print(f"[p9 trainer] examples/train_dlrm_torch.py, defaults ({d.tables} tables x "
+          f"{d.categories} x {d.width}, batch {d.batch}, hotness {d.hotness}, "
+          f"{d.steps} steps): {rate:.0f} examples/s; native host library "
+          f"{'loaded' if native.AVAILABLE else 'not built (numpy fallbacks)'}")
+
+    names = [f"t{i}" for i in range(d.tables)]
+    coll = tce.EmbeddingCollection([tce.TableConfig(t, d.categories, d.width,
+                                                    hotness=d.hotness) for t in names])
+    tables = coll.init(gen)
+    accs = coll.adagrad_init()
+    ids = {t: torch.from_numpy(PowerLawGenerator(
+        d.categories - 1, d.hotness, d.alpha, seed=100 + i, permute=True,
+        dtype=np.int32).sample(d.batch)).cuda() for i, t in enumerate(names)}
+    gys = {t: torch.randn((d.batch, d.width), device="cuda", generator=gen)
+           for t in names}
+    before = {t: tables[t].clone() for t in names}
+    plain_t = {t: tables[t].clone() for t in names}
+    plain_a = {t: accs[t].clone() for t in names}
+    pooled = coll.apply(tables, ids)
+    want = coll.apply(plain_t, ids, backend="xla")
+    coll.adagrad_update(tables, accs, ids, gys, lr=d.lr)
+    e1, e3 = max(max_abs_err(pooled[t], want[t]) for t in names), 0.0
+    print(f"[p9 trainer shapes] collection.apply: max |K1 - plain path| {e1} (bit for "
+          f"bit expected)")
+    if e1:
+        raise SystemExit("[p9 trainer shapes] K1 disagrees with the plain path")
+    for t in names:
+        train.rowwise_adagrad_sparse_update(plain_t[t], plain_a[t], ids[t], gys[t],
+                                            lr=d.lr, backend="xla")
+        uniq, *sums = float64_runs(gys[t], *fixed_coo(ids[t]), None, ids[t].numel())
+        e3 = max(e3, check_fp32_step(
+            f"p9 trainer shapes, adagrad_update {t}",
+            {"K3 path": tables[t], "plain path": plain_t[t]}, before[t], uniq, sums, d.lr,
+            acc=(torch.zeros_like(accs[t]),
+                 {"K3 path": accs[t], "plain path": plain_a[t]})))
+    return launches, e1, e3
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1544,28 +2035,21 @@ def main():
     # 4. The serving path, counted.
     csr_requests = [("sum_w", False), ("sum_w", True), ("mean", False), ("mean", True)]
     k1, k2 = cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr
-    k1.launches = k2.launches = 0
     with plain_path_forbidden(cuda_forward, dispatch):
-        fixed_out = tce.embedding_lookup(table, idx, backend="auto")
-        torch.cuda.synchronize()
-        if k1.launches != 1:
-            raise SystemExit(f"[fixed] K1 launched {k1.launches} times, not once")
+        with counted((1, 0, 0, 0), "fixed"):
+            fixed_out = tce.embedding_lookup(table, idx, backend="auto")
         csr_out = []
         for mode, lpm in csr_requests:
-            before = k2.launches
-            csr_out.append(tce.embedding_lookup_csr(
-                table, flat, offsets, csr_w if mode == "sum_w" else None,
-                mode=tce.CombineMode(mode.removesuffix("_w")),
-                low_precision_math=lpm, backend="auto"))
-            torch.cuda.synchronize()
-            if k2.launches != before + 1:
-                raise SystemExit(f"[csr] K2 did not launch for {mode} lpm={lpm}")
-        small_out, small_ms = serve(small, small_batches, "module 100K x 32 fp32")
-        big_out, big_ms = serve(big, big_batches, "module 10M x 256 fp16")
-    launches = {"K1": k1.launches, "K2": k2.launches}
-    print(f"[main path] launches: {launches}")
-    if not all(launches.values()):
-        raise SystemExit("[main path] a kernel of the path never launched")
+            with counted((0, 1, 0, 0), f"csr {mode} lpm={lpm}"):
+                csr_out.append(tce.embedding_lookup_csr(
+                    table, flat, offsets, csr_w if mode == "sum_w" else None,
+                    mode=tce.CombineMode(mode.removesuffix("_w")),
+                    low_precision_math=lpm, backend="auto"))
+        n = len(small_batches) + len(big_batches)
+        with counted((n, 0, 0, 0), "module requests"):
+            small_out, small_ms = serve(small, small_batches, "module 100K x 32 fp32")
+            big_out, big_ms = serve(big, big_batches, "module 10M x 256 fp16")
+    launches = np.array((1 + n, len(csr_requests), 0, 0))
 
     # Correctness of the main path against the plain version.
     errs = {"K1": 0.0, "K2": 0.0}
@@ -1644,16 +2128,14 @@ def main():
     # versions forbidden.
     tbag = tce.EmbeddingBag(NUM_ROWS, WIDTH, dtype=torch.bfloat16)
     tbag.reset_parameters(generator=gen)
-    kb = cuda_backward.embedding_backward_cuda
-    kc = cuda_backward.embedding_backward_cuda_compressed
-    k1.launches = k2.launches = kb.launches = kc.launches = 0
-    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+    # Dense steps: K1 and K3 full each; AdaGrad steps and the SGD step: K1
+    # and K3 compressed each; the CSR SUM and MEAN backward: K2 and K3 full
+    # each; the CONCAT backward: K3 full.
+    train_launches = np.array((DENSE_STEPS + ADAGRAD_STEPS + 1, 2, DENSE_STEPS + 3,
+                               ADAGRAD_STEPS + 1))
+    with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+          counted(train_launches, "training path")):
         keep = drive_training(tbag, idx, flat, offsets, csr_w)
-    train_launches = {"K1": k1.launches, "K2": k2.launches, "K3 full": kb.launches,
-                      "K3 compressed": kc.launches}
-    print(f"[training path] launches: {train_launches}")
-    if not all(train_launches.values()):
-        raise SystemExit("[training path] a kernel of the path never launched")
     dense_gy = keep["dense"][1]
     print(f"[training path] {DENSE_STEPS} dense steps (autograd + torch.optim.SGD; the "
           f"first ones include one-time set-up), host ms {[round(t, 4) for t in keep['dense_ms']]}, median "
@@ -1669,22 +2151,43 @@ def main():
     step_timings(tbag, idx)
     # 7. The TPU engines' training paths (ROADMAP P7).
     p7_train = phase_p7_training(tbag, idx, hot_idx, gen)
+    del tbag
+    torch.cuda.empty_cache()
 
+    # 8. Tables, collections, fused groups, the DLRM and its trainer (ROADMAP
+    # P8, P9), each counted; K1, K2 and K3 only.
+    p8_table, e_table = phase_tables_table(gen, idx, np.stack(batches_np[1:5]), flat,
+                                           offsets, csr_w)
+    p8_fused, e1_fused, e3_fused = phase_tables_fused(gen, args.seed)
+    p9_dlrm, e1_dlrm, e3_dlrm = phase_dlrm(gen, args.seed)
+    p9_trainer, e1_trainer, e3_trainer = phase_trainer(gen)
+    print(f"[p8/p9] launches (K1, K2, K3 full, K3 compressed): table "
+          f"{tuple(int(x) for x in p8_table)}, collection and fused "
+          f"{tuple(int(x) for x in p8_fused)}, dlrm {tuple(int(x) for x in p9_dlrm)}, "
+          f"trainer {tuple(int(x) for x in p9_trainer)}")
+    errs["K1"] = max(errs["K1"], e1_fused, e1_dlrm, e1_trainer)
+    errs["K3"] = max(errs["K3"], e_table, e3_fused, e3_dlrm, e3_trainer)
+
+    # Launches of every counted run, (K1, K2, K3 full, K3 compressed).
+    total = (launches + p7_launches + train_launches + p7_train + p8_table + p8_fused
+             + p9_dlrm + p9_trainer)
+    print(f"[main path] launches of every path (K1, K2, K3 full, K3 compressed): "
+          f"{tuple(int(x) for x in total)}")
     kernels = []
     for name, source, replaces, t, n in (
         ("K1 fixed_forward_kernel", "forward.cu", "pallas_forward.py:55", fixed_t,
-         launches["K1"] + train_launches["K1"] + p7_launches["K1"] + p7_train["K1"]),
-        ("K2 csr_forward_kernel", "forward.cu", "pallas_forward.py:274", csr_t,
-         launches["K2"] + train_launches["K2"] + p7_launches["K2"]),
+         total[0]),
+        ("K2 csr_forward_kernel", "forward.cu", "pallas_forward.py:274", csr_t, total[1]),
         ("K3 coo_backward_kernel", "backward.cu", "pallas_backward.py:58", k3_t,
-         train_launches["K3 full"] + train_launches["K3 compressed"]
-         + p7_train["K3 full"] + p7_train["K3 compressed"]),
+         total[2] + total[3]),
     ):
+        if not n:
+            raise SystemExit(f"[main path] {name} never launched")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cuembed_tpu_torch/csrc/{source}",
             "replaces": f"cuembed_tpu/ops/{replaces}",
-            "launches": n, "max_abs_err": errs[name[:2]],
+            "launches": int(n), "max_abs_err": errs[name[:2]],
             **t, "card": kind, "power_limit": power_limit,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -9,11 +9,24 @@ fixed-hotness and CSR lookups run on two hand-written CUDA kernels
 index's run, on a third (``csrc/backward.cu``), for CUDA tensors; CPU
 tensors take a plain PyTorch version. The JAX package's TPU engines (tiered,
 line-packed narrow, int8; ``ops/tiered.py``, ``ops/narrow.py``,
-``ops/quant.py``) keep their API and results and run on the same kernels.
-This package imports neither JAX nor ``cuembed_tpu``; the JAX package is
-the reference it is tested against.
+``ops/quant.py``) keep their API and results and run on the same kernels,
+and so do the table layer (``EmbeddingTable``, ``EmbeddingCollection``, the
+fused groups of ``fused.py``), the models (``models/``: the DLRM tower and
+``QREmbeddingBag``), the host binding (``native``) and the input pipeline
+(``utils/pipeline.py``). This package imports neither JAX nor
+``cuembed_tpu``; the JAX package is the reference it is tested against.
 """
 
+from cuembed_tpu_torch.collection import EmbeddingCollection, TableConfig
+from cuembed_tpu_torch.fused import (
+    FusedSpec,
+    fuse_counts,
+    fuse_tables,
+    fused_adagrad_update,
+    fused_lookup,
+    fused_sgd_update,
+    unfuse_table,
+)
 from cuembed_tpu_torch.models.embedding_bag import EmbeddingBag
 from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
 from cuembed_tpu_torch.ops.cuda_backward import (
@@ -44,6 +57,7 @@ from cuembed_tpu_torch.ops.transforms import (
     transpose,
     transpose_masked_compact,
 )
+from cuembed_tpu_torch.table import EmbeddingTable, resize_table
 from cuembed_tpu_torch.train import (
     adam_init,
     adam_sparse_update,
@@ -76,6 +90,17 @@ __all__ = [
     "TieredConfig",
     "csr_combine_config",
     "tiered_forward",
+    "EmbeddingTable",
+    "resize_table",
+    "EmbeddingCollection",
+    "TableConfig",
+    "FusedSpec",
+    "fuse_tables",
+    "fuse_counts",
+    "fused_lookup",
+    "fused_sgd_update",
+    "fused_adagrad_update",
+    "unfuse_table",
     "embedding_forward_torch",
     "embedding_forward_cuda",
     "embedding_forward_cuda_csr",

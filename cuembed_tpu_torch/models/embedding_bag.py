@@ -29,7 +29,12 @@ from cuembed_tpu_torch.ops.narrow import (
     unpack_narrow,
 )
 from cuembed_tpu_torch.ops.tiered import tiering_profitable
-from cuembed_tpu_torch.types import STORAGE_DTYPES, CombineMode, default_device
+from cuembed_tpu_torch.types import (
+    STORAGE_DTYPES,
+    CombineMode,
+    default_device,
+    init_table_,
+)
 
 __all__ = ["EmbeddingBag", "default_device"]
 
@@ -91,9 +96,8 @@ class EmbeddingBag(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         """U(-1/sqrt(width), 1/sqrt(width)) init, the JAX package's law;
         a packed table's padding rows stay zero."""
-        scale = 1.0 / (self.width**0.5)
         with torch.no_grad():
-            self.weight.uniform_(-scale, scale, generator=generator)
+            init_table_(self.weight, generator, self.width)
             if self._packed:
                 self.weight.view(-1, self.width)[self.num_categories:] = 0
 

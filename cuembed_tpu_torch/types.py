@@ -63,6 +63,18 @@ def default_device(device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
+def init_table_(
+    table: torch.Tensor,
+    generator: torch.Generator | None = None,
+    width: int | None = None,
+) -> torch.Tensor:
+    """Fill ``table`` in place with U(-1/sqrt(W), 1/sqrt(W)) draws from
+    ``generator`` and return it: the JAX package's table init law (not its
+    draws). ``W`` is ``width``, default the table's last dimension."""
+    scale = 1.0 / (width or table.shape[-1]) ** 0.5
+    return table.uniform_(-scale, scale, generator=generator)
+
+
 def check_index_dtype(dtype: torch.dtype) -> torch.dtype:
     """Return ``dtype`` if indices of that dtype are supported, else raise."""
     if dtype not in INDEX_DTYPES:

@@ -607,3 +607,132 @@ def test_int8_lookups_on_the_card(gen):
     want = tce.tiered_forward(table.cpu(), idx.cpu(), cfg=cfg,
                               q_head=quant.QuantizedHead(qh.data.cpu()))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
+
+
+def _counts():
+    return (cuda_forward.embedding_forward_cuda.launches,
+            cuda_forward.embedding_forward_cuda_csr.launches,
+            cuda_backward.embedding_backward_cuda.launches,
+            cuda_backward.embedding_backward_cuda_compressed.launches)
+
+
+def _launched(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def test_table_lookups_and_update_run_the_kernels(gen):
+    """EmbeddingTable on the card: the reorder stays on the card, lookups
+    after calibrate (device remap and host remap) launch K1 once each and
+    equal the lookup before it bit for bit; the CSR lookup launches K2; an
+    AdaGrad step on the table launches K3 compressed and equals the step on
+    the CPU on integer data."""
+    from cuembed_tpu_torch import train
+    from cuembed_tpu_torch.table import EmbeddingTable, resize_table
+
+    t = EmbeddingTable(_integer_table(gen, 20_000, 64), layout="raw", hot_bytes=65536,
+                       vmem_table_bytes=1024)
+    idx = (torch.rand((512, 16), device="cuda", generator=gen) ** 3 * 20_000).long()
+    offsets = torch.tensor([0, 5, 5, 40, 41], device="cuda")
+    flat = idx.reshape(-1)[:64].contiguous()
+    ref, ref_csr = t.lookup(idx), t.lookup(flat, offsets=offsets)
+    t.calibrate(idx)
+    assert t.table.is_cuda and t.tiered_cfg is not None
+    before = _counts()
+    got = t.lookup(idx)
+    got_pipe = t.lookup(t.remap_indices(idx), assume_remapped=True)
+    got_csr = t.lookup(flat, offsets=offsets)
+    assert _launched(before) == (2, 1, 0, 0)
+    assert torch.equal(got, ref) and torch.equal(got_pipe, ref)
+    assert torch.equal(got_csr, ref_csr)
+    gy = torch.randint(-3, 4, (512, 64), device="cuda", generator=gen).float()
+    rows = t.remap_indices(idx)
+    want_t, want_a = t.table.cpu(), torch.zeros(20_000)
+    acc = train.rowwise_adagrad_init(20_000)
+    before = _counts()
+    train.rowwise_adagrad_sparse_update(t.table, acc, rows, gy, lr=0.1)
+    assert _launched(before) == (0, 0, 0, 1)
+    train.rowwise_adagrad_sparse_update(want_t, want_a, rows.cpu(), gy.cpu(), lr=0.1)
+    torch.testing.assert_close(acc.cpu(), want_a, rtol=1e-6, atol=0)
+    torch.testing.assert_close(t.table.cpu(), want_t, rtol=1e-6, atol=1e-6)
+    grown, grown_acc = resize_table(t.table, 21_000, gen, accum=acc)
+    assert grown.is_cuda and torch.equal(grown[:20_000], t.table)
+    assert not grown_acc[20_000:].any()
+
+
+def test_fused_group_is_one_launch(gen):
+    """fused_lookup launches K1 once and equals the per-table lookups of
+    EmbeddingCollection.apply bit for bit under SUM; fused_adagrad_update
+    launches K3 compressed once and equals the per-table updates."""
+    from cuembed_tpu_torch.collection import EmbeddingCollection, TableConfig
+
+    names = [f"t{i}" for i in range(4)]
+    coll = EmbeddingCollection([TableConfig(n, 5000, 64, hotness=8) for n in names])
+    tables = coll.init(gen)
+    idx = {n: torch.randint(0, 5000, (1024, 8), device="cuda", generator=gen)
+           for n in names}
+    fused, spec = tce.fuse_tables(tables, {n: 8 for n in names})
+    before = _counts()
+    got = tce.fused_lookup(fused, spec, idx)
+    assert _launched(before) == (1, 0, 0, 0)
+    want = coll.apply(tables, idx)
+    assert _launched(before) == (5, 0, 0, 0)
+    assert all(torch.equal(got[n], want[n]) for n in names)
+    gy = {n: torch.randint(-3, 4, (1024, 64), device="cuda", generator=gen).float()
+          for n in names}
+    accum = tce.rowwise_adagrad_init(spec.total_rows)
+    before = _counts()
+    _, got_accum = tce.fused_adagrad_update(fused, accum, spec, idx, gy, lr=0.1)
+    assert _launched(before) == (0, 0, 0, 1)
+    _, accums = coll.adagrad_update(tables, coll.adagrad_init(), idx, gy, lr=0.1)
+    parts = tce.unfuse_table(fused, spec)
+    for n, b, s in zip(spec.names, spec.bases, spec.sizes):
+        torch.testing.assert_close(parts[n], tables[n], rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(got_accum[b:b + s], accums[n], rtol=1e-6, atol=0)
+
+
+def test_dlrm_step_runs_k3_full(gen):
+    """The DLRM's sgd_step on the card: one K1 and one K3 full launch a
+    step with fused storage, one each a table without; the loss and the
+    step equal the CPU model's from the same parameters."""
+    from cuembed_tpu_torch.models import DLRM, DLRMConfig
+
+    base = dict(table_sizes=(3000, 2000, 5000), embed_width=32, hotness=4,
+                dense_features=8, bottom_mlp=(16, 32), top_mlp=(16, 1))
+    dense = torch.randn((256, 8), device="cuda", generator=gen)
+    sparse = [torch.randint(0, v, (256, 4), device="cuda", generator=gen)
+              for v in base["table_sizes"]]
+    labels = torch.randint(0, 2, (256,), device="cuda", generator=gen).float()
+    for fused, launches in ((True, (1, 0, 1, 0)), (False, (3, 0, 3, 0))):
+        m = DLRM(DLRMConfig(**base, fused=fused))
+        m.reset_parameters(gen)
+        cpu = DLRM(DLRMConfig(**base, fused=fused), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        before = _counts()
+        loss = m.sgd_step(dense, sparse, labels, lr=0.05)
+        assert _launched(before) == launches
+        want = cpu.sgd_step(dense.cpu(), [s.cpu() for s in sparse], labels.cpu(), lr=0.05)
+        torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=1e-6)
+        for (name, p), q in zip(m.named_parameters(), cpu.parameters()):
+            torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-5, atol=1e-6,
+                                       msg=name)
+
+
+def test_pipeline_hands_over_on_the_callers_stream(gen):
+    """Batches copied on the pipeline's side stream from pinned memory are
+    ready on the caller's stream: the same values as the host remap, each
+    tensor on the card."""
+    import numpy as np
+
+    from cuembed_tpu_torch.utils.pipeline import InputPipeline, to_device
+
+    rng = np.random.default_rng(0)
+    remap = rng.permutation(10_000).astype(np.int32)
+    batches = [rng.integers(0, 10_000, (4096, 8)).astype(np.int32) for _ in range(6)]
+    it = iter(batches)
+    with InputPipeline(lambda: {"x": next(it)}, remap={"x": remap}, depth=3,
+                       device_put=to_device("cuda")) as pipe:
+        for raw in batches:
+            got = pipe.get()["x"]
+            assert got.is_cuda
+            doubled = got * 2  # a kernel on the caller's stream reads it
+            assert torch.equal(doubled.cpu(), torch.from_numpy(remap[raw]) * 2)

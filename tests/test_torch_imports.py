@@ -1,4 +1,5 @@
-"""The port, chip_smoke.py and tools/ import neither JAX nor the JAX package.
+"""The port, chip_smoke.py, tools/ and the port's examples
+(``examples/*_torch.py``) import neither JAX nor the JAX package.
 
 A static scan of the sources' import statements: the test process has JAX
 imported already (the JAX tests run in it), so a ``sys.modules`` check
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = (sorted((ROOT / "cuembed_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*.py")))
+         + sorted((ROOT / "tools").glob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_modules(path: Path):
@@ -44,8 +46,13 @@ def test_scan_sees_the_port():
                    "ops/lookup_torch.py", "ops/_build.py", "ops/cuda_forward.py",
                    "ops/cuda_backward.py", "ops/dispatch.py", "ops/api.py",
                    "train.py", "models/embedding_bag.py",
-                   "utils/datagen.py", "utils/benchmarking.py"):
+                   "utils/datagen.py", "utils/benchmarking.py",
+                   "native/__init__.py", "utils/frequency.py", "utils/calibration.py",
+                   "utils/pipeline.py", "table.py", "collection.py", "fused.py",
+                   "models/qr_embedding.py", "models/dlrm.py"):
         assert f"cuembed_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names and "tools/k3_sweep.py" in names
+    assert "examples/train_dlrm_torch.py" in names
+    assert "examples/train_dlrm.py" not in names  # the JAX trainer
     assert _forbidden("jax.numpy") and _forbidden("cuembed_tpu.ops")
     assert not _forbidden("cuembed_tpu_torch.ops")

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import cuembed_tpu as jce
@@ -91,3 +92,23 @@ def test_row_ids_from_csr(index_dtype, pad):
         torch.from_numpy(indices).to(index_dtype))
     assert got.dtype == index_dtype
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("width", [8, 64])
+def test_init_table_is_the_jax_law(width):
+    """``init_table_`` draws U(-1/sqrt(W), 1/sqrt(W)), the JAX package's table
+    init law: within the bound, reaching near it, centred; ``width``
+    overrides the last dimension (a packed table's rows hold k rows)."""
+    bound = 1.0 / width ** 0.5
+    gen = torch.Generator().manual_seed(0)
+    t = tce.types.init_table_(torch.empty((4096, width)), gen)
+    assert float(t.abs().max()) <= bound
+    assert float(t.abs().max()) > 0.99 * bound
+    assert abs(float(t.mean())) < 0.01 * bound
+    packed = tce.types.init_table_(torch.empty((512, 4 * width)), gen, width)
+    assert float(packed.abs().max()) <= bound
+    assert float(packed.abs().max()) > 0.99 * bound
+    # The JAX collection's tables obey the same bound.
+    jt = jce.EmbeddingCollection([jce.TableConfig("a", 4096, width)]).init(
+        jax.random.PRNGKey(0))["a"]
+    assert float(jnp.max(jnp.abs(jt))) <= bound
