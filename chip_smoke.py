@@ -96,7 +96,28 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    nothing builds it here), then a collection at its shapes: one lookup
    bit for bit and one AdaGrad update held to the float64 step, beside
    the plain path.
-9. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
+9. The host-offloaded table and the parallel layer (ROADMAP P10, P11
+   below the planner), each call counted and the plain versions forbidden.
+   ``HostOffloadTable`` at benchmarks/offload_benchmark.py's defaults (2M x
+   64 fp32, a 262,144-row head on the card, batch 8192, hotness 8): its
+   lookup (one K1 launch on the head and the shipped cold rows) bit for bit
+   against K1 on the resident table under SUM, MEAN and weighted SUM, one
+   batch prepared on the ``InputPipeline`` thread, an SGD step and two
+   AdaGrad steps held to the float64 step; with ``prepare``'s host ms and
+   the lookup's device ms beside K1's on the resident table. Then 4 ranks
+   spawned on cuda:0 over gloo (NCCL refuses two ranks on one device),
+   each counting its launches: config 2's table (10M x 256 fp16)
+   row-sharded, its request through ``row_sharded_lookup``,
+   ``alltoall_row_sharded_lookup`` (bit for bit against one-card K1) and
+   its ``compress="int8"`` route, each within its bound; the 8 routed
+   updates at ``DLRMConfig``'s table shape (100K x 64 fp32, batch 65536,
+   hotness 8; column and grid on a (2, 2) mesh) held to the float64 step;
+   ``examples/train_dlrm_sharded_torch.py`` at its defaults on the 4 ranks
+   and at world size 1 over NCCL, the losses held to each other; and the
+   fused DLRM group (8 tables): its lookup against the per-table routed
+   lookups bit for bit, its AdaGrad update and theirs held to the float64
+   step.
+10. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
@@ -139,6 +160,7 @@ from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_compressed_tor
 from cuembed_tpu_torch.ops.lookup_torch import embedding_backward_torch as plain_bwd
 from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
 from cuembed_tpu_torch.ops.transforms import transpose, transpose_position_ordered
+from cuembed_tpu_torch.parallel.sharding import assemble
 from cuembed_tpu_torch.utils import benchmarking as bench
 from cuembed_tpu_torch.types import init_table_
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
@@ -1109,6 +1131,42 @@ def compare_in_chunks(out, table, idx, offsets=None, weights=None, **kw):
     return err
 
 
+def check_lookup_plain(name, outs, table, idx, weights=None, mode=tce.CombineMode.SUM):
+    """Lookups of a fixed batch ({label: output}) and the plain version on
+    the same table and ids, each held to the float64 combine within the
+    row sums' recursive-sum bound (``sum_bound``), in chunks of batch rows.
+    Returns max |output - plain|."""
+    hotness = idx.shape[1]
+    ratios, err = dict.fromkeys(list(outs) + ["plain path"], 0.0), 0.0
+    for s0 in range(0, idx.shape[0], COMPARE_ROWS):
+        ids = idx[s0:s0 + COMPARE_ROWS]
+        w = None if weights is None else weights[s0:s0 + COMPARE_ROWS]
+        want = plain(table, ids, None, w, mode=mode)
+        rows = table.index_select(0, ids.reshape(-1).long()).double().view(
+            *ids.shape, table.shape[1])
+        c = torch.ones(ids.shape, dtype=torch.float64, device=ids.device)
+        if w is not None:
+            c = w.double()
+        if mode == tce.CombineMode.MEAN:
+            c = c / hotness
+        terms = rows * c[..., None]
+        exact, mass = terms.sum(dim=1), terms.abs().sum(dim=1)
+        bound = sum_bound(exact, mass, hotness, 24, table.dtype)
+        chunk = {label: out[s0:s0 + COMPARE_ROWS] for label, out in outs.items()}
+        for label, got in list(chunk.items()) + [("plain path", want)]:
+            if not torch.isfinite(got).all():
+                raise SystemExit(f"[{name}] {label}: a non-finite output")
+            ratios[label] = max(ratios[label],
+                                ((got.double() - exact).abs() / bound).max().item())
+            err = max(err, max_abs_err(got, want))
+    print(f"[{name}] {idx.shape[0]} x {hotness} against the float64 combine, error over its "
+          f"bound (at most 1 passes): {', '.join(f'{k} {v:.3g}' for k, v in ratios.items())}"
+          f"; max |kernel path - plain path| {err}")
+    if max(ratios.values()) > 1:
+        raise SystemExit(f"[{name}] a lookup is off the float64 combine")
+    return err
+
+
 def timings(name, kernel_fn, plain_fn, library_fn, bound, app_bytes):
     k = bench.cuda_time_ms(kernel_fn)
     p = bench.cuda_time_ms(plain_fn, warmup=1, iters=5)
@@ -1976,6 +2034,586 @@ def phase_trainer(gen):
     return launches, e1, e3
 
 
+# -- ROADMAP P10: the host-offloaded table -------------------------------------
+
+# benchmarks/offload_benchmark.py's defaults.
+OFF_ROWS, OFF_HOT, OFF_WIDTH, OFF_BATCH, OFF_HOTNESS = 2_000_000, 262_144, 64, 8192, 8
+OFF_SGD_LR = 0.05
+
+
+def offload_cap(batches, hot):
+    """cold_cap as benchmarks/offload_benchmark.py sizes it: the most unique
+    cold rows of any batch, rounded up to 64."""
+    return -(-max(np.unique(b[b >= hot]).size for b in batches) // 64) * 64
+
+
+def phase_offload(seed):
+    """ROADMAP P10 at benchmarks/offload_benchmark.py's defaults (2M x 64
+    fp32, hot head 262,144 rows, batch 8192, hotness 8, alpha 1.15 hot-first
+    ids): the offloaded lookup (one K1 launch on the head and the shipped
+    rows) under SUM, MEAN and weighted SUM bit for bit against K1 on the
+    resident table; one prepare on the InputPipeline thread; an SGD step and
+    two AdaGrad steps (K3 compressed on the head, the tail on the host) held
+    to the float64 step beside the plain path. Each lookup is also held,
+    beside the plain version on the resident table, to the float64 combine.
+    Returns the launches, max |K1 path - plain| and max |K3 path - plain|."""
+    from cuembed_tpu_torch.utils.pipeline import InputPipeline
+
+    rng = np.random.default_rng(seed + 30)
+    t0 = time.perf_counter()
+    table = rng.standard_normal((OFF_ROWS, OFF_WIDTH), dtype=np.float32)
+    gen_ids = PowerLawGenerator(OFF_ROWS - 1, OFF_HOTNESS, ALPHA, seed=seed + 31)
+    batches = [gen_ids.sample(OFF_BATCH).astype(np.int32) for _ in range(4)]
+    cap = offload_cap(batches, OFF_HOT)
+    off = tce.HostOffloadTable(table, OFF_HOT, cold_cap=cap)
+    resident = torch.from_numpy(table).cuda()
+    print(f"[p10 offload] {OFF_ROWS} x {OFF_WIDTH} fp32, head {OFF_HOT} rows on the card, "
+          f"tail {OFF_ROWS - OFF_HOT} rows on the host; batch {OFF_BATCH} x {OFF_HOTNESS}; "
+          f"cold_cap {cap}; set-up {time.perf_counter() - t0:.1f} s")
+    prep = "native" if native.AVAILABLE else "numpy"
+    host_ms = []
+    for b in batches:
+        _, ms = timed(lambda: off.prepare(b))
+        host_ms.append(ms)
+    batch = off.prepare(batches[0])
+    idx = torch.from_numpy(batches[0]).cuda()
+    w_np = rng.random(batches[0].shape, dtype=np.float32)
+    wbatch = off.prepare(batches[0], w_np)
+    w = torch.from_numpy(w_np).cuda()
+    print(f"[p10 offload] prepare ({prep}) host ms {[round(m, 3) for m in host_ms]}; "
+          f"{batch.uniq_cold.size} unique cold rows shipped of {idx.numel()} positions")
+
+    k1 = cuda_forward.embedding_forward_cuda
+    modes = (("sum", batch, None), ("mean", batch, None), ("sum_w", wbatch, w))
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        outs = {}
+        for name, b, _ in modes:
+            m = tce.CombineMode(name.removesuffix("_w"))
+            with counted((1, 0, 0, 0), f"p10 offload lookup {name}"):
+                outs[name] = off.lookup(b, mode=m)
+        it = iter(batches[1:2])
+        with InputPipeline(lambda: off.prepare(next(it)), depth=1) as pipe:
+            with counted((1, 0, 0, 0), "p10 offload lookup, prepared on the pipeline thread"):
+                piped = off.lookup(pipe.get())
+    launches = np.array((4, 0, 0, 0))
+    e1 = 0.0
+    for name, b, wt in modes:
+        coeff = wt if name == "sum_w" else (
+            None if name == "sum" else torch.full(idx.shape, 1.0 / OFF_HOTNESS, device="cuda"))
+        want = k1(resident, idx, coeff)
+        same = torch.equal(outs[name], want)
+        print(f"[p10 offload] lookup {name}: {'equal' if same else 'NOT EQUAL'} to K1 on the "
+              f"resident table bit for bit")
+        if not same:
+            raise SystemExit(f"[p10 offload] the {name} lookup differs from the resident one")
+        e1 = max(e1, check_lookup_plain(
+            f"p10 offload lookup {name}", {"offload": outs[name]}, resident, idx, wt,
+            tce.CombineMode(name.removesuffix("_w"))))
+    if not torch.equal(piped, k1(resident, torch.from_numpy(batches[1]).cuda())):
+        raise SystemExit("[p10 offload] the pipeline-prepared lookup differs")
+    print("[p10 offload] the batch prepared on the InputPipeline thread looks up bit for bit "
+          "as K1 on the resident table")
+    off_ms = bench.cuda_time_ms(lambda: off.lookup(batch))
+    res_ms = bench.cuda_time_ms(lambda: k1(resident, idx))
+    print(f"[p10 offload] device ms (CUDA events, L2 flushed): offloaded lookup {off_ms:.4f} "
+          f"(the shipped rows' copy and one K1), K1 on the resident table {res_ms:.4f}")
+
+    # Steps, each from the offload table's state, beside the plain path from
+    # the same state, held to the float64 step.
+    gy = torch.from_numpy(rng.standard_normal((OFF_BATCH, OFF_WIDTH), dtype=np.float32)).cuda()
+    uniq, *sums = float64_runs(gy, *fixed_coo(idx), None, idx.numel())
+
+    def full():
+        return torch.from_numpy(off.full_table()).cuda()
+
+    before = full()
+    with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+          counted((0, 0, 0, 1), "p10 offload sgd_update")):
+        _, sgd_ms = timed(lambda: off.sgd_update(batch, gy, lr=OFF_SGD_LR))
+    plain_t = before.clone()
+    train.sgd_sparse_update(plain_t, idx, gy, lr=OFF_SGD_LR, backend="xla")
+    e3 = check_fp32_step("p10 offload sgd_update", {"offload": full(), "plain path": plain_t},
+                         before, uniq, sums, OFF_SGD_LR)
+    off.adagrad_init()
+    ada_ms = []
+    for step in range(2):
+        before = full()
+        acc0 = torch.cat([off.head_accum, torch.from_numpy(off.tail_accum).cuda()])
+        b = off.prepare(batches[0])
+        with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+              counted((0, 0, 0, 1), f"p10 offload adagrad_update {step + 1}")):
+            _, ms = timed(lambda: off.adagrad_update(b, gy, lr=ADAGRAD_LR))
+        ada_ms.append(ms)
+        plain_t, plain_a = before.clone(), acc0.clone()
+        train.rowwise_adagrad_sparse_update(plain_t, plain_a, idx, gy, lr=ADAGRAD_LR,
+                                            backend="xla")
+        acc1 = torch.cat([off.head_accum, torch.from_numpy(off.tail_accum).cuda()])
+        e3 = max(e3, check_fp32_step(
+            f"p10 offload adagrad_update {step + 1}", {"offload": full(), "plain path": plain_t},
+            before, uniq, sums, ADAGRAD_LR, acc=(acc0, {"offload": acc1, "plain path": plain_a})))
+    for _ in range(3):
+        ada_ms.append(timed(lambda: off.adagrad_update(b, gy, lr=ADAGRAD_LR))[1])
+    sgd_ms = [sgd_ms] + [timed(lambda: off.sgd_update(b, gy, lr=OFF_SGD_LR))[1]
+                         for _ in range(3)]
+    print(f"[p10 offload] host ms to a synchronize (the head on the card, the cold rows' "
+          f"sums to the host and the tail updated there; the first with one-time set-up): "
+          f"sgd_update {[round(m, 3) for m in sgd_ms]}, median {statistics.median(sgd_ms):.3f}; "
+          f"adagrad_update {[round(m, 3) for m in ada_ms]}, median "
+          f"{statistics.median(ada_ms):.3f}")
+    del off, resident, table
+    torch.cuda.empty_cache()
+    return launches + np.array((0, 0, 0, 3)), e1, e3
+
+
+# -- ROADMAP P11: the parallel layer, on ranks that share the card --------------
+
+PAR_RANKS = 4
+PAR_GLOO_TIMEOUT_S = 300
+DLRM_ROWS, DLRM_WIDTH, DLRM_HOTNESS, DLRM_TABLES = 100_000, 64, 8, 8
+PAR_SGD_LR = 0.05
+# The sharded trainer's losses on 4 ranks against one, a secondary check
+# (its first and last steps are replayed on the plain path): its towers
+# round their operands to bf16, so a last-bit change of a weight after a
+# step (the routed sums and the all-reduced dense gradients add in another
+# order) can flip a rounding; over 10 steps the losses drift apart by about
+# 1e-3 (CPU, gloo).
+PAR_LOSS_RTOL = 1e-2
+HYBRID_HOT = 4096
+# Per rank: (a) K1 for the row-sharded, routed and int8 routed lookups;
+# (b) K3 compressed for each of the 8 routed updates; (c) the sharded
+# trainer's lookups (K1) and routed AdaGrad updates (K3 compressed), one a
+# table a step; (d) the fused lookup and update (one each) and the 8
+# per-table ones.
+PAR_EXPECT = {"a": (3, 0, 0, 0), "b": (0, 0, 0, 8), "d": (9, 0, 0, 9)}
+
+
+def flagship_block(m, n, seed):
+    """Row block ``m`` of ``n`` of the sharded flagship table (10M x 256
+    fp16): each block drawn by the package's init law from its own seed, so
+    the whole table is the blocks' concatenation."""
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + m)
+    t = torch.empty((NUM_ROWS // n, WIDTH), dtype=torch.float16, device="cuda")
+    return init_table_(t, g, width=WIDTH)
+
+
+def par_tables(seed):
+    """The 8 DLRM tables of the routed updates (100K x 64 fp32), drawn on the
+    card from one seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    return [init_table_(torch.empty((DLRM_ROWS, DLRM_WIDTH), device="cuda"), g)
+            for _ in range(DLRM_TABLES)]
+
+
+def dlrm_batch(seed, i):
+    """Table ``i``'s ids (batch 65536, hotness 8, permuted alpha 1.15) and
+    pooled-output gradient."""
+    ids = PowerLawGenerator(DLRM_ROWS - 1, DLRM_HOTNESS, ALPHA, permute=True,
+                            seed=seed + 50 + i, dtype=np.int64).sample(BATCH)
+    g = torch.Generator(device="cuda").manual_seed(seed + 60 + i)
+    return (torch.from_numpy(ids).cuda(),
+            torch.randn((BATCH, DLRM_WIDTH), device="cuda", generator=g))
+
+
+UPDATES = ("row sgd", "row adagrad", "hybrid sgd", "hybrid adagrad", "column sgd",
+           "column adagrad", "grid sgd", "grid adagrad")
+
+
+def update_layout(name):
+    """(mesh shape, table spec, accumulator spec, batch spec, grad_y spec)
+    of a routed update."""
+    if name.startswith("column"):
+        return (2, 2), (None, "model"), (None,), ("data", None), ("data", "model")
+    if name.startswith("grid"):
+        return (2, 2), ("model", "data"), ("model",), ("model", None), ("model", "data")
+    return (1, 4), ("model", None), ("model",), ("model", None), ("model", None)
+
+
+def run_update(name, mesh, table, idx, gy):
+    """One routed update of ``name`` on this rank's blocks; returns the
+    updated blocks (table, accumulator or None)."""
+    from cuembed_tpu_torch import parallel as par
+
+    shape, tspec, aspec, bspec, gspec = update_layout(name)
+    kind, opt = name.split()
+    ib, gb = par.local_block(idx, mesh, bspec), par.local_block(gy, mesh, gspec)
+    lr = ADAGRAD_LR if opt == "adagrad" else PAR_SGD_LR
+    if kind == "hybrid":
+        head, tail = par.split_hybrid_table(table, HYBRID_HOT, shape[1])
+        head, tail = head.clone(), par.local_block(tail, mesh, tspec).clone()
+        if opt == "sgd":
+            par.sharded_hybrid_sgd_sparse_update(head, tail, ib, gb, mesh=mesh, lr=lr)
+            return (head, tail), None
+        hacc = torch.zeros(HYBRID_HOT, device="cuda")
+        tacc = torch.zeros(tail.shape[0], device="cuda")
+        par.sharded_hybrid_rowwise_adagrad_sparse_update(head, tail, hacc, tacc, ib, gb,
+                                                         mesh=mesh, lr=lr)
+        return (head, tail), (hacc, tacc)
+    fns = {"row": (par.sharded_sgd_sparse_update, par.sharded_rowwise_adagrad_sparse_update),
+           "column": (par.column_sharded_sgd_sparse_update,
+                      par.column_sharded_rowwise_adagrad_sparse_update),
+           "grid": (par.grid_sharded_sgd_sparse_update,
+                    par.grid_sharded_rowwise_adagrad_sparse_update)}[kind]
+    tb = par.local_block(table, mesh, tspec).contiguous().clone()
+    if opt == "sgd":
+        fns[0](tb, ib, gb, mesh=mesh, lr=lr)
+        return tb, None
+    acc = par.local_block(torch.zeros(table.shape[0], device="cuda"), mesh, aspec).clone()
+    fns[1](tb, acc, ib, gb, mesh=mesh, lr=lr)
+    return tb, acc
+
+
+def par_counted(expect, name, fn):
+    """fn() in a rank, counted from 0 with the plain versions forbidden;
+    returns (result, launches, seconds)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+        out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    if expect is not None and got != tuple(expect):
+        raise RuntimeError(f"[{name}] launched {got} in a rank, expected {tuple(expect)}")
+    return out, got, seconds
+
+
+def par_rank(rank, world, tmp, seed):
+    """One rank of phase_parallel on cuda:0 over gloo: each sub-phase
+    counted in the rank; its blocks and counts saved for the parent."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from cuembed_tpu_torch import parallel as par
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_GLOO_TIMEOUT_S))
+    out = {"launches": {}, "seconds": {}}
+    try:
+        flat = par.make_mesh(n_model=world)
+        grid = par.make_mesh(n_model=2)
+        meshes = {(1, 4): flat, (2, 2): grid}
+
+        # (a) the flagship table row-sharded over the ranks.
+        block = flagship_block(rank, world, seed)
+        idx = torch.from_numpy(np.load(f"{tmp}/flagship_ids.npy")).cuda()
+        ib = par.local_block(idx, flat, ("model", None))
+
+        def lookups():
+            return (par.row_sharded_lookup(block, idx, mesh=flat),
+                    par.alltoall_row_sharded_lookup(block, ib, mesh=flat),
+                    par.alltoall_row_sharded_lookup(block, ib, mesh=flat, compress="int8"))
+        res, out["launches"]["a"], out["seconds"]["a"] = par_counted(
+            PAR_EXPECT["a"], "p11 flagship lookups", lookups)
+        out["a"] = [r.cpu() for r in res]
+        _, ms = timed(lambda: par.alltoall_row_sharded_lookup(block, ib, mesh=flat))
+        out["a2a_host_ms"] = ms
+        del block, res
+        torch.cuda.empty_cache()
+
+        # (b) the 8 routed updates at DLRMConfig's table shape.
+        table = par_tables(seed)[0]
+        idx, gy = dlrm_batch(seed, 0)
+        out["b"], secs, counts = {}, 0.0, np.zeros(4, np.int64)
+        for name in UPDATES:
+            mesh = meshes[update_layout(name)[0]]
+            res, got, s = par_counted(
+                (0, 0, 0, 1), f"p11 {name}", lambda: run_update(name, mesh, table, idx, gy))
+            out["b"][name] = tuple(None if r is None else tuple(x.cpu() for x in r)
+                                   if isinstance(r, tuple) else r.cpu() for r in res)
+            counts += got
+            secs += s
+        out["launches"]["b"], out["seconds"]["b"] = tuple(int(c) for c in counts), secs
+
+        # (c) examples/train_dlrm_sharded_torch.py at its defaults.
+        trainer = load_example("train_dlrm_sharded_torch")
+        args = trainer.parse_args([])
+        n = args.steps * args.tables
+        res, out["launches"]["c"], out["seconds"]["c"] = par_counted(
+            (n, 0, 0, n), "p11 sharded trainer",
+            lambda: trainer.train(args, torch.device("cuda", 0),
+                                  record=(0, args.steps - 1)))
+        out["c"] = res
+
+        # (d) the fused DLRM group against the per-table routed calls.
+        tables = par_tables(seed)
+        names = [f"t{i}" for i in range(DLRM_TABLES)]
+        batches = [dlrm_batch(seed, i) for i in range(DLRM_TABLES)]
+        fused, spec = tce.fuse_tables(dict(zip(names, tables)),
+                                      {nm: DLRM_HOTNESS for nm in names})
+        fb = par.local_block(fused, flat, ("model", None)).contiguous().clone()
+        pb = [par.local_block(t, flat, ("model", None)).contiguous().clone() for t in tables]
+        del fused, tables
+        ids = {nm: par.local_block(b[0], flat, ("model", None)) for nm, b in
+               zip(names, batches)}
+        gys = {nm: par.local_block(b[1], flat, ("model", None)) for nm, b in
+               zip(names, batches)}
+
+        def fused_vs_per_table():
+            fo = tce.fused_sharded_lookup(fb, spec, ids, mesh=flat)
+            po = [par.alltoall_row_sharded_lookup(t, ids[nm], mesh=flat)
+                  for t, nm in zip(pb, names)]
+            facc = torch.zeros(fb.shape[0], device="cuda")
+            tce.fused_sharded_adagrad_update(fb, facc, spec, ids, gys, mesh=flat,
+                                             lr=ADAGRAD_LR)
+            paccs = [torch.zeros(t.shape[0], device="cuda") for t in pb]
+            for t, a, nm in zip(pb, paccs, names):
+                par.sharded_rowwise_adagrad_sparse_update(t, a, ids[nm], gys[nm], mesh=flat,
+                                                          lr=ADAGRAD_LR)
+            return fo, po, facc, paccs
+        (fo, po, facc, paccs), out["launches"]["d"], out["seconds"]["d"] = par_counted(
+            PAR_EXPECT["d"], "p11 fused group", fused_vs_per_table)
+        out["d_lookup_bits"] = all(torch.equal(fo[nm], p) for nm, p in zip(names, po))
+        out["d_lookup"] = [fo[nm].cpu() for nm in names]
+        out["d"] = (fb.cpu(), facc.cpu(), [t.cpu() for t in pb], [a.cpu() for a in paccs])
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def load_example(name):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def nccl_world_one(tmp):
+    """examples/train_dlrm_sharded_torch.py at its defaults over NCCL at
+    world size 1, in this process; counted."""
+    import torch.distributed as dist
+
+    trainer = load_example("train_dlrm_sharded_torch")
+    args = trainer.parse_args([])
+    n = args.steps * args.tables
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                            world_size=1)
+    try:
+        with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+              counted((n, 0, 0, n), "p11 sharded trainer, NCCL, world size 1")):
+            t0 = time.perf_counter()
+            res = trainer.train(args, torch.device("cuda", 0), record=(0,))
+            seconds = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    return res, np.array((n, 0, 0, n)), seconds
+
+
+def check_flagship(outs, seed, idx):
+    """(a): the ranks' lookups against one-card K1 on the whole table: the
+    routed lookup bit for bit, the row-sharded one within the fp32 row sums'
+    bound plus the fp16 roundings of its partials and their all-reduce, the
+    int8 route within sum max|row| / 254 plus that bound; the routed lookup
+    also against the plain version. Returns max |routed - plain|."""
+    table = torch.cat([flagship_block(m, PAR_RANKS, seed) for m in range(PAR_RANKS)])
+    want = cuda_forward.embedding_forward_cuda(table, idx)
+    row = outs[0][0].cuda()
+    routed = assemble([o[1] for o in outs], ("model", None), (1, PAR_RANKS)).cuda()
+    int8 = assemble([o[2] for o in outs], ("model", None), (1, PAR_RANKS)).cuda()
+    same = torch.equal(routed, want)
+    amax = table.float().abs().amax(dim=1)
+    r_row = r_int8 = 0.0
+    for b0 in range(0, BATCH, COMPARE_ROWS):
+        ids = idx[b0:b0 + COMPARE_ROWS]
+        rows = table.index_select(0, ids.reshape(-1)).double().view(*ids.shape, WIDTH)
+        exact, mass = rows.sum(dim=1), rows.abs().sum(dim=1)
+        base = sum_bound(exact, mass, HOTNESS, 24, torch.float16)
+        partial = base + PAR_RANKS * 2.0 ** -11 * mass
+        q = (amax[ids].double() / 254).sum(dim=1, keepdim=True)
+        r_row = max(r_row, ((row[b0:b0 + COMPARE_ROWS].double() - exact).abs()
+                            / partial).max().item())
+        r_int8 = max(r_int8, ((int8[b0:b0 + COMPARE_ROWS].double() - exact).abs()
+                              / (base + q)).max().item())
+    e_row, e_int8 = max_abs_err(row, want), max_abs_err(int8, want)
+    print(f"[p11 flagship] {NUM_ROWS} x {WIDTH} fp16 over {PAR_RANKS} ranks, batch {BATCH} x "
+          f"{HOTNESS}: alltoall_row_sharded_lookup {'equal' if same else 'NOT EQUAL'} to "
+          f"one-card K1 bit for bit; row_sharded_lookup max |err| {e_row}, error over its bound "
+          f"{r_row:.3g}; compress='int8' max |err| {e_int8}, error over its bound {r_int8:.3g} "
+          f"(at most 1 passes)")
+    if not same or r_row > 1 or r_int8 > 1:
+        raise SystemExit("[p11 flagship] a sharded lookup is off the one-card lookup")
+    e1 = compare_in_chunks(routed, table, idx)
+    print(f"[p11 flagship] alltoall_row_sharded_lookup against the plain version: max |err| "
+          f"{e1} (within one fp16 ulp passes)")
+    del table
+    torch.cuda.empty_cache()
+    return e1
+
+
+def check_updates(outs, seed):
+    """(b): each routed update, assembled, held to the float64 step beside
+    the plain path's single-table update. Returns max |routed - plain|."""
+    table = par_tables(seed)[0]
+    idx, gy = dlrm_batch(seed, 0)
+    uniq, *sums = float64_runs(gy, *fixed_coo(idx), None, idx.numel())
+    e3 = 0.0
+    for name in UPDATES:
+        shape, tspec, aspec, _, _ = update_layout(name)
+        kind, opt = name.split()
+        tb, ab = zip(*[o["b"][name] for o in outs])
+        if kind == "hybrid":
+            got = torch.cat([assemble([t[0] for t in tb], (), shape),
+                             assemble([t[1] for t in tb], tspec, shape)])
+            acc = (None if opt == "sgd" else torch.cat(
+                [assemble([a[0] for a in ab], (), shape),
+                 assemble([a[1] for a in ab], aspec, shape)]))
+        else:
+            got = assemble(list(tb), tspec, shape)
+            acc = None if opt == "sgd" else assemble(list(ab), aspec, shape)
+        got = got[:DLRM_ROWS].cuda()
+        plain_t = table.clone()
+        if opt == "sgd":
+            train.sgd_sparse_update(plain_t, idx, gy, lr=PAR_SGD_LR, backend="xla")
+            e3 = max(e3, check_fp32_step(f"p11 {name}", {"routed": got, "plain path": plain_t},
+                                         table, uniq, sums, PAR_SGD_LR))
+        else:
+            plain_a = torch.zeros(DLRM_ROWS, device="cuda")
+            train.rowwise_adagrad_sparse_update(plain_t, plain_a, idx, gy, lr=ADAGRAD_LR,
+                                                backend="xla")
+            e3 = max(e3, check_fp32_step(
+                f"p11 {name}", {"routed": got, "plain path": plain_t}, table, uniq, sums,
+                ADAGRAD_LR, acc=(torch.zeros(DLRM_ROWS, device="cuda"),
+                                 {"routed": acc[:DLRM_ROWS].cuda(), "plain path": plain_a})))
+    return e3
+
+
+def check_fused(outs, seed):
+    """(d): the fused group's routed lookup against the per-table routed
+    lookups bit for bit; its routed AdaGrad update and the per-table ones,
+    each table's rows held to the float64 step beside the plain path's
+    single-table update. (Bit for bit they need not be: K3 adds a run's
+    pieces at tile edges, and a table's runs start at other offsets of the
+    fused stream than of its own.) Each table's routed lookup is also held,
+    beside the plain version, to the float64 combine. Returns max |routed -
+    plain| of the lookups (K1) and of the updates (K3)."""
+    flat = (1, PAR_RANKS)
+    fused = assemble([o["d"][0] for o in outs], ("model", None), flat).cuda()
+    facc = assemble([o["d"][1] for o in outs], ("model",), flat).cuda()
+    same = all(o["d_lookup_bits"] for o in outs)
+    print(f"[p11 fused] fused_sharded_lookup of {DLRM_TABLES} tables x {DLRM_ROWS} x "
+          f"{DLRM_WIDTH} (one K1 launch a rank) against the {DLRM_TABLES} per-table routed "
+          f"lookups: {'equal bit for bit' if same else 'NOT EQUAL'}")
+    if not same:
+        raise SystemExit("[p11 fused] the fused lookup differs from the per-table ones")
+    tables, e1, e3, bits = par_tables(seed), 0.0, 0.0, True
+    for i, before in enumerate(tables):
+        t = assemble([o["d"][2][i] for o in outs], ("model", None), flat)[:DLRM_ROWS]
+        a = assemble([o["d"][3][i] for o in outs], ("model",), flat)[:DLRM_ROWS]
+        rows = slice(i * DLRM_ROWS, (i + 1) * DLRM_ROWS)
+        bits = bits and torch.equal(fused[rows].cpu(), t) and torch.equal(facc[rows].cpu(), a)
+        idx, gy = dlrm_batch(seed, i)
+        looked = assemble([o["d_lookup"][i] for o in outs], ("model", None), flat).cuda()
+        e1 = max(e1, check_lookup_plain(f"p11 fused lookup, table {i}",
+                                        {"routed fused": looked}, before, idx))
+        uniq, *sums = float64_runs(gy, *fixed_coo(idx), None, idx.numel())
+        plain_t, plain_a = before.clone(), torch.zeros(DLRM_ROWS, device="cuda")
+        train.rowwise_adagrad_sparse_update(plain_t, plain_a, idx, gy, lr=ADAGRAD_LR,
+                                            backend="xla")
+        e3 = max(e3, check_fp32_step(
+            f"p11 fused adagrad, table {i}",
+            {"routed fused": fused[rows], "routed per-table": t.cuda(), "plain path": plain_t},
+            before, uniq, sums, ADAGRAD_LR,
+            acc=(torch.zeros(DLRM_ROWS, device="cuda"),
+                 {"routed fused": facc[rows], "routed per-table": a.cuda(),
+                  "plain path": plain_a})))
+    print(f"[p11 fused] fused_sharded_adagrad_update (one K3 launch a rank) against the "
+          f"{DLRM_TABLES} per-table routed updates: "
+          f"{'equal bit for bit' if bits else 'not bit for bit'} (both within the bounds above)")
+    return e1, e3
+
+
+def check_trainer(label, results, shape, args):
+    """(c): each step the sharded trainer recorded, replayed on one table
+    per embedding table from the ranks' assembled blocks: its routed
+    lookups held, beside the plain version, to the float64 combine, and
+    its routed AdaGrad updates, beside the plain path's update with the
+    same ids and pooled-output gradients, to the float64 step. Returns max
+    |routed - plain| of the lookups (K1) and of the updates (K3)."""
+    rows, e1, e3 = args.categories, 0.0, 0.0
+    for step in results[0]["record"]:
+        recs = [r["record"][step] for r in results]
+        for nm in recs[0]["ids"]:
+            def glob(key, spec):
+                return assemble([r[key][nm] for r in recs], spec, shape).cuda()
+            before, acc0 = glob("tables", ("model", None))[:rows], glob("accums", ("model",))[:rows]
+            after = glob("tables_after", ("model", None))[:rows]
+            acc1 = glob("accums_after", ("model",))[:rows]
+            ids, gy = glob("ids", ("model", None)), glob("grads", ("model", None))
+            name = f"p11 trainer {label}, step {step}, {nm}"
+            e1 = max(e1, check_lookup_plain(f"{name} lookup",
+                                            {"routed": glob("pooled", ("model", None))},
+                                            before, ids))
+            plain_t, plain_a = before.clone(), acc0.clone()
+            train.rowwise_adagrad_sparse_update(plain_t, plain_a, ids, gy, lr=args.lr,
+                                                backend="xla")
+            uniq, *sums = float64_runs(gy, *fixed_coo(ids), None, ids.numel())
+            e3 = max(e3, check_fp32_step(
+                f"{name} adagrad", {"routed": after, "plain path": plain_t}, before, uniq,
+                sums, args.lr, acc=(acc0, {"routed": acc1, "plain path": plain_a})))
+    return e1, e3
+
+
+def phase_parallel(seed, idx):
+    """ROADMAP P11 below the planner on one card: PAR_RANKS ranks spawned on
+    cuda:0 over gloo (NCCL refuses two ranks on one device), each counting
+    its own launches with the plain versions forbidden. (a) config 2's
+    table row-sharded, its request through row_sharded_lookup,
+    alltoall_row_sharded_lookup and the latter with compress="int8"; (b) the
+    8 routed updates at DLRMConfig's table shape; (c)
+    examples/train_dlrm_sharded_torch.py at its defaults, and again at world
+    size 1 over NCCL in this process, its first and last steps (the NCCL
+    run's first) replayed on the plain path; (d) the fused DLRM group
+    against the per-table routed calls (the lookups bit for bit, the
+    AdaGrad updates against the float64 step) and the plain path. Returns
+    the launches (summed over the ranks) and max |kernel - plain| of K1 and
+    of K3."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/flagship_ids.npy", idx.cpu().numpy())
+        torch.multiprocessing.spawn(par_rank, args=(PAR_RANKS, tmp, seed), nprocs=PAR_RANKS,
+                                    join=True)
+        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+        spawn_s = time.perf_counter() - t0
+        one, one_launches, one_s = nccl_world_one(tmp)
+    launches = np.zeros(4, np.int64)
+    for o in outs:
+        for part in "abcd":
+            launches += np.array(o["launches"][part])
+    secs = {p: round(max(o["seconds"][p] for o in outs), 2) for p in "abcd"}
+    print(f"[p11 parallel] {PAR_RANKS} ranks on cuda:0 over gloo: {spawn_s:.1f} s with the "
+          f"spawn; slowest rank's seconds by sub-phase {secs}; the routed flagship lookup "
+          f"host ms, rank 0: {outs[0]['a2a_host_ms']:.1f}; launches (K1, K2, K3 full, K3 "
+          f"compressed) summed over the ranks {tuple(int(x) for x in launches)}")
+    e1 = check_flagship([o["a"] for o in outs], seed, idx)
+    e1_d, e3_d = check_fused(outs, seed)
+    args = load_example("train_dlrm_sharded_torch").parse_args([])
+    e1_c, e3_c = check_trainer(f"{PAR_RANKS} ranks", [o["c"] for o in outs],
+                               (1, PAR_RANKS), args)
+    e1_one, e3_one = check_trainer("NCCL", [one], (1, 1), args)
+    e1 = max(e1, e1_d, e1_c, e1_one)
+    e3 = max(check_updates(outs, seed), e3_d, e3_c, e3_one)
+    four = outs[0]["c"]["losses"]
+    if any(o["c"]["losses"] != four for o in outs):
+        raise SystemExit("[p11 trainer] the ranks disagree on the losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(four, one["losses"]))
+    print(f"[p11 trainer] examples/train_dlrm_sharded_torch.py, defaults: {PAR_RANKS} ranks "
+          f"(gloo) {four[0]:.6f} .. {four[-1]:.6f}, {outs[0]['c']['rate']:.0f} examples/s; "
+          f"world size 1 (NCCL) {one['losses'][0]:.6f} .. {one['losses'][-1]:.6f}, "
+          f"{one['rate']:.0f} examples/s, {one_s:.1f} s; max relative loss difference {rel:.3g} "
+          f"(at most {PAR_LOSS_RTOL} passes; a secondary check beside the replays above)")
+    if rel > PAR_LOSS_RTOL or not all(np.isfinite(four)):
+        raise SystemExit("[p11 trainer] the 4-rank losses are off the one-rank losses")
+    return launches + one_launches, e1, e3
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2168,9 +2806,22 @@ def main():
     errs["K1"] = max(errs["K1"], e1_fused, e1_dlrm, e1_trainer)
     errs["K3"] = max(errs["K3"], e_table, e3_fused, e3_dlrm, e3_trainer)
 
+    # 9. The host-offloaded table (ROADMAP P10) and the parallel layer below
+    # its planner (P11), each counted; K1 and K3 only.
+    t9 = time.perf_counter()
+    p10_offload, e1_offload, e3_offload = phase_offload(args.seed)
+    t10 = time.perf_counter()
+    p11_parallel, e1_parallel, e3_parallel = phase_parallel(args.seed, idx)
+    print(f"[p10/p11] launches (K1, K2, K3 full, K3 compressed): offload "
+          f"{tuple(int(x) for x in p10_offload)} in {t10 - t9:.1f} s, parallel (summed over "
+          f"the ranks) {tuple(int(x) for x in p11_parallel)} in "
+          f"{time.perf_counter() - t10:.1f} s")
+    errs["K1"] = max(errs["K1"], e1_offload, e1_parallel)
+    errs["K3"] = max(errs["K3"], e3_offload, e3_parallel)
+
     # Launches of every counted run, (K1, K2, K3 full, K3 compressed).
     total = (launches + p7_launches + train_launches + p7_train + p8_table + p8_fused
-             + p9_dlrm + p9_trainer)
+             + p9_dlrm + p9_trainer + p10_offload + p11_parallel)
     print(f"[main path] launches of every path (K1, K2, K3 full, K3 compressed): "
           f"{tuple(int(x) for x in total)}")
     kernels = []

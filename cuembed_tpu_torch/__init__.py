@@ -13,7 +13,10 @@ line-packed narrow, int8; ``ops/tiered.py``, ``ops/narrow.py``,
 and so do the table layer (``EmbeddingTable``, ``EmbeddingCollection``, the
 fused groups of ``fused.py``), the models (``models/``: the DLRM tower and
 ``QREmbeddingBag``), the host binding (``native``) and the input pipeline
-(``utils/pipeline.py``). This package imports neither JAX nor
+(``utils/pipeline.py``), the host-offloaded table (``offload.py``) and the
+parallel layer (``parallel/``: row, column, grid and hybrid sharding, the
+all-to-all router and the routed updates, run per rank over
+``torch.distributed``). This package imports neither JAX nor
 ``cuembed_tpu``; the JAX package is the reference it is tested against.
 """
 
@@ -25,6 +28,9 @@ from cuembed_tpu_torch.fused import (
     fused_adagrad_update,
     fused_lookup,
     fused_sgd_update,
+    fused_sharded_adagrad_update,
+    fused_sharded_lookup,
+    fused_sharded_sgd_update,
     unfuse_table,
 )
 from cuembed_tpu_torch.models.embedding_bag import EmbeddingBag
@@ -57,6 +63,7 @@ from cuembed_tpu_torch.ops.transforms import (
     transpose,
     transpose_masked_compact,
 )
+from cuembed_tpu_torch.offload import HostOffloadTable, OffloadBatch
 from cuembed_tpu_torch.table import EmbeddingTable, resize_table
 from cuembed_tpu_torch.train import (
     adam_init,
@@ -75,6 +82,7 @@ from cuembed_tpu_torch.types import (
     combine_coefficients,
 )
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator, power_law_indices
+from cuembed_tpu_torch import parallel
 
 __version__ = "0.1.0"
 
@@ -101,6 +109,12 @@ __all__ = [
     "fused_sgd_update",
     "fused_adagrad_update",
     "unfuse_table",
+    "fused_sharded_lookup",
+    "fused_sharded_sgd_update",
+    "fused_sharded_adagrad_update",
+    "HostOffloadTable",
+    "OffloadBatch",
+    "parallel",
     "embedding_forward_torch",
     "embedding_forward_cuda",
     "embedding_forward_cuda_csr",

@@ -17,8 +17,11 @@ A set of named embedding tables managed together:
   in place.
 
 Tables are a ``dict[str, torch.Tensor]``, as the JAX package's are a dict
-of arrays. Placement planning and the sharded entry points belong to the
-parallel layer (ROADMAP P11), which is not ported yet: they raise
+of arrays. The sharded entry points (:meth:`EmbeddingCollection.shard`,
+:meth:`~EmbeddingCollection.apply_sharded` and the routed updates) run on
+the parallel layer (:mod:`cuembed_tpu_torch.parallel`), one rank at a time
+on its blocks. Placement planning needs the planner, which is not ported
+yet: :meth:`~EmbeddingCollection.plan_placement` raises
 ``NotImplementedError``.
 """
 
@@ -46,8 +49,8 @@ from cuembed_tpu_torch.utils import frequency as freq
 # hot heads with it, as the placement planner reads them.
 LANES = 128
 
-_P11 = ("{} needs the parallel layer (ROADMAP P11), which the PyTorch port "
-        "does not have yet")
+_PLANNER = ("{} needs the placement planner (cuembed_tpu/parallel/planner.py), "
+            "which the PyTorch port does not have yet (ROADMAP P11)")
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -209,8 +212,8 @@ class EmbeddingCollection:
         return out
 
     def plan_placement(self, n_shards: int, **kwargs):
-        """Placement over ``n_shards`` devices: needs the planner (P11)."""
-        raise NotImplementedError(_P11.format("plan_placement"))
+        """Placement over ``n_shards`` devices: needs the planner."""
+        raise NotImplementedError(_PLANNER.format("plan_placement"))
 
     # -- forward -------------------------------------------------------------
     def _lookup(self, name, table, idx, w, off, backend, tiered):
@@ -442,18 +445,116 @@ class EmbeddingCollection:
             )
         return new_t, new_a
 
-    # -- multi-device (the parallel layer, ROADMAP P11) ------------------------
-    def shard(self, tables, mesh, **kwargs):
-        raise NotImplementedError(_P11.format("shard"))
+    # -- multi-device (row-sharded tables over a mesh axis) --------------------
+    def shard(
+        self, tables: Dict[str, torch.Tensor], mesh, *, axis: str = "model"
+    ) -> Dict[str, torch.Tensor]:
+        """This rank's row block (spec ``(axis, None)``) of every table.
 
-    def adagrad_init_sharded(self, mesh, **kwargs):
-        raise NotImplementedError(_P11.format("adagrad_init_sharded"))
+        Rows are padded to a multiple of the axis size (padding rows are
+        never addressed: ids stay in ``[0, num_categories)``). Each block is
+        a contiguous copy. Feed the result to :meth:`apply_sharded` /
+        :meth:`adagrad_update_sharded`.
+        """
+        from cuembed_tpu_torch.parallel import local_block, pad_table_for_shards
+        from cuembed_tpu_torch.parallel.sharding import axis_size
 
-    def apply_sharded(self, tables, indices, weights=None, offsets=None, **kwargs):
-        raise NotImplementedError(_P11.format("apply_sharded"))
+        n = axis_size(mesh, axis)
+        return {
+            name: local_block(pad_table_for_shards(t, n), mesh, (axis, None)).clone()
+            for name, t in tables.items()
+        }
 
-    def sgd_update_sharded(self, tables, indices, grads_y, **kwargs):
-        raise NotImplementedError(_P11.format("sgd_update_sharded"))
+    def adagrad_init_sharded(
+        self, mesh, *, axis: str = "model", device: torch.device | str | None = None
+    ) -> Dict[str, torch.Tensor]:
+        """This rank's block of the accumulators, row-aligned with
+        :meth:`shard`'s padded tables (on ``device``, default the card)."""
+        from cuembed_tpu_torch.parallel.sharding import axis_size
 
-    def adagrad_update_sharded(self, tables, accums, indices, grads_y, **kwargs):
-        raise NotImplementedError(_P11.format("adagrad_update_sharded"))
+        n = axis_size(mesh, axis)
+        return {
+            name: rowwise_adagrad_init(-(-c.num_categories // n), device=device)
+            for name, c in self.configs.items()
+        }
+
+    def apply_sharded(
+        self,
+        tables: Dict[str, torch.Tensor],
+        indices: Dict[str, torch.Tensor],
+        weights: Optional[Dict[str, torch.Tensor]] = None,
+        offsets: Optional[Dict[str, torch.Tensor]] = None,
+        *,
+        mesh,
+        axis: str = "model",
+    ) -> Dict[str, torch.Tensor]:
+        """All-to-all routed pooled lookup for every table in ``indices``.
+
+        Tables from :meth:`shard`; this rank's ``(axis, None)`` block of the
+        batch (sharded-CSR ``[1, cap]`` blocks with ``offsets``: see
+        :func:`~cuembed_tpu_torch.parallel.shard_csr`).
+        """
+        from cuembed_tpu_torch.parallel import alltoall_row_sharded_lookup
+
+        return {
+            name: alltoall_row_sharded_lookup(
+                tables[name], idx,
+                weights.get(name) if weights else None,
+                offsets.get(name) if offsets else None,
+                mesh=mesh, mode=self.configs[name].mode, axis=axis,
+            )
+            for name, idx in indices.items()
+        }
+
+    def sgd_update_sharded(
+        self,
+        tables: Dict[str, torch.Tensor],
+        indices: Dict[str, torch.Tensor],
+        grads_y: Dict[str, torch.Tensor],
+        *,
+        mesh,
+        lr: float,
+        weights: Optional[Dict[str, torch.Tensor]] = None,
+        offsets: Optional[Dict[str, torch.Tensor]] = None,
+        axis: str = "model",
+    ) -> Dict[str, torch.Tensor]:
+        """Routed sparse SGD for every table in ``grads_y``, in place."""
+        from cuembed_tpu_torch.parallel import sharded_sgd_sparse_update
+
+        new = dict(tables)
+        for name, gy in grads_y.items():
+            new[name] = sharded_sgd_sparse_update(
+                tables[name], indices[name], gy, mesh=mesh, lr=lr,
+                offsets=offsets.get(name) if offsets else None,
+                weights=weights.get(name) if weights else None,
+                mode=self.configs[name].mode, axis=axis,
+            )
+        return new
+
+    def adagrad_update_sharded(
+        self,
+        tables: Dict[str, torch.Tensor],
+        accums: Dict[str, torch.Tensor],
+        indices: Dict[str, torch.Tensor],
+        grads_y: Dict[str, torch.Tensor],
+        *,
+        mesh,
+        lr: float,
+        eps: float = 1e-8,
+        weights: Optional[Dict[str, torch.Tensor]] = None,
+        offsets: Optional[Dict[str, torch.Tensor]] = None,
+        axis: str = "model",
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Routed row-wise AdaGrad for every table in ``grads_y``, in place."""
+        from cuembed_tpu_torch.parallel import sharded_rowwise_adagrad_sparse_update
+
+        new_t, new_a = dict(tables), dict(accums)
+        for name, gy in grads_y.items():
+            new_t[name], new_a[name] = sharded_rowwise_adagrad_sparse_update(
+                tables[name], accums[name], indices[name], gy,
+                mesh=mesh, lr=lr, eps=eps,
+                offsets=offsets.get(name) if offsets else None,
+                weights=weights.get(name) if weights else None,
+                mode=self.configs[name].mode, axis=axis,
+            )
+        return new_t, new_a

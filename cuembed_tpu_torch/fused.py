@@ -16,8 +16,10 @@ as the per-table lookup does, bit for bit; MEAN folds ``1/H_t`` into the
 coefficients, so there each position is scaled before the sum instead of
 the sum after it (a rounding difference where ``1/H_t`` is inexact).
 
-The sharded mirrors (``fused_sharded_*``) belong to the parallel layer
-(ROADMAP P11), which is not ported yet.
+The sharded mirrors (``fused_sharded_*``) run the group on a row-sharded
+fused table over the parallel layer (:mod:`cuembed_tpu_torch.parallel`):
+one all-to-all routed lookup and one routed update for the whole group, each
+rank on its block of the batch.
 """
 
 from __future__ import annotations
@@ -266,4 +268,106 @@ def fused_adagrad_update(
         fused, accum, big_idx, big_gy, lr=lr, eps=eps, weights=big_w,
         mode=CombineMode.SUM if big_w is not None else mode,
         tiered_cfg=tiered_cfg,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Multi-device mirrors: the fused group on a row-sharded fused table
+# ---------------------------------------------------------------------------
+
+
+def fused_sharded_lookup(
+    fused: torch.Tensor,
+    spec: FusedSpec,
+    indices: Dict[str, torch.Tensor],
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+    *,
+    mesh,
+    mode: CombineMode = CombineMode.SUM,
+    remap: Optional[torch.Tensor] = None,
+    capacity_factor: float = 2.0,
+    axis: str = "model",
+    compress: str = "none",
+) -> Dict[str, torch.Tensor]:
+    """Routed pooled lookup of the whole group: ONE all-to-all lookup.
+
+    The multi-device mirror of :func:`fused_lookup`. ``fused`` is this
+    rank's row block of the fused table (spec ``(axis, None)``; pad its rows
+    with :func:`~cuembed_tpu_torch.parallel.pad_table_for_shards`);
+    ``indices``/``weights`` hold this rank's ``[batch / n, H_t]`` block of
+    each table's batch (spec ``(axis, None)``), whose stacked ``[batch / n
+    * T, H_max]`` group batch is the rank's block of the global one, so one
+    :func:`~cuembed_tpu_torch.parallel.alltoall_row_sharded_lookup` serves
+    the group. Returns each table's ``[batch / n, W]`` block.
+    """
+    if mode == CombineMode.CONCAT:
+        raise ValueError("fusion pools per (sample, table); CONCAT keeps "
+                         "per-row outputs — look those tables up unfused")
+    from cuembed_tpu_torch.parallel.alltoall_lookup import alltoall_row_sharded_lookup
+
+    big_idx, big_w, batch, T = _fused_batch(spec, indices, weights, mode)
+    big_idx = _remapped(big_idx, remap)
+    out = alltoall_row_sharded_lookup(
+        fused, big_idx, big_w, None, mesh=mesh,
+        mode=CombineMode.SUM if big_w is not None else mode,
+        capacity_factor=capacity_factor, axis=axis, compress=compress,
+    )
+    out = out.view(batch, T, spec.width)
+    return {n: out[:, t] for t, n in enumerate(spec.names)}
+
+
+def fused_sharded_sgd_update(
+    fused: torch.Tensor,
+    spec: FusedSpec,
+    indices: Dict[str, torch.Tensor],
+    grads_y: Dict[str, torch.Tensor],
+    *,
+    mesh,
+    lr: float,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+    mode: CombineMode = CombineMode.SUM,
+    remap: Optional[torch.Tensor] = None,
+    capacity_factor: float = 2.0,
+    axis: str = "model",
+) -> torch.Tensor:
+    """Sparse SGD for the whole group: ONE routed update, in place on this
+    rank's block of the fused table."""
+    from cuembed_tpu_torch.parallel.train import sharded_sgd_sparse_update
+
+    big_idx, big_w, big_gy = _fused_grad_batch(spec, indices, grads_y, weights, mode,
+                                               remap)
+    return sharded_sgd_sparse_update(
+        fused, big_idx, big_gy, mesh=mesh, lr=lr, weights=big_w,
+        mode=CombineMode.SUM if big_w is not None else mode,
+        capacity_factor=capacity_factor, axis=axis,
+    )
+
+
+def fused_sharded_adagrad_update(
+    fused: torch.Tensor,
+    accum: torch.Tensor,
+    spec: FusedSpec,
+    indices: Dict[str, torch.Tensor],
+    grads_y: Dict[str, torch.Tensor],
+    *,
+    mesh,
+    lr: float,
+    eps: float = 1e-8,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+    mode: CombineMode = CombineMode.SUM,
+    remap: Optional[torch.Tensor] = None,
+    capacity_factor: float = 2.0,
+    axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise AdaGrad for the whole group: ONE routed state update, in
+    place. ``accum`` is this rank's block of the accumulator, row-aligned
+    with the (padded) fused table (spec ``(axis,)``)."""
+    from cuembed_tpu_torch.parallel.train import sharded_rowwise_adagrad_sparse_update
+
+    big_idx, big_w, big_gy = _fused_grad_batch(spec, indices, grads_y, weights, mode,
+                                               remap)
+    return sharded_rowwise_adagrad_sparse_update(
+        fused, accum, big_idx, big_gy, mesh=mesh, lr=lr, eps=eps, weights=big_w,
+        mode=CombineMode.SUM if big_w is not None else mode,
+        capacity_factor=capacity_factor, axis=axis,
     )

@@ -4,8 +4,9 @@
 Covered: the per-table tiered configs (the hot-budget split), apply (fixed,
 weighted, CSR, with the tiered configs), counts, reorder, head-hit rates,
 the sparse SGD and AdaGrad updates, the feature-level entry points on
-shared tables, the state round trip through ``torch.save``, and the errors
-of the parallel layer's entry points, which the port does not have yet.
+shared tables, the state round trip through ``torch.save``, the error of
+``plan_placement`` (the planner is not ported yet), and the sharded entry
+points on a one-rank mesh.
 
 Tolerances: integer-valued tables and gradients with lr = 0.5 keep every
 sum exact: pooled outputs and SGD tables bit for bit. AdaGrad divides by a
@@ -254,22 +255,60 @@ def test_errors_match_jax():
                               {"c": torch.zeros(8, 8)}, lr=0.1)
 
 
-P11_CALLS = {
-    "plan_placement": lambda c: c.plan_placement(4, batch=64),
-    "shard": lambda c: c.shard({}, None),
-    "adagrad_init_sharded": lambda c: c.adagrad_init_sharded(None),
-    "apply_sharded": lambda c: c.apply_sharded({}, {}, mesh=None),
-    "sgd_update_sharded": lambda c: c.sgd_update_sharded({}, {}, {}, mesh=None, lr=0.1),
-    "adagrad_update_sharded": lambda c: c.adagrad_update_sharded({}, {}, {}, {}, mesh=None,
-                                                                 lr=0.1),
-}
+P11_CALLS = ("plan_placement", "shard", "adagrad_init_sharded", "apply_sharded",
+             "sgd_update_sharded", "adagrad_update_sharded")
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A (data, model) = (1, 1) mesh over a one-rank gloo group in this
+    process, taken down after the module."""
+    import torch.distributed as dist
+    from cuembed_tpu_torch.parallel import make_mesh
+
+    store = tmp_path_factory.mktemp("one_rank") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield make_mesh(device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", sorted(P11_CALLS))
-def test_parallel_entry_points_wait_for_p11(name):
+def test_parallel_entry_points_wait_for_p11(name, one_rank_mesh):
+    """``plan_placement`` still waits for the placement planner (the last
+    part of P11); the sharded entry points run on the parallel layer, and on
+    one rank equal the single-device methods bit for bit (the routed sums
+    take the same rows in the same order; the multi-rank cases are in
+    tests/test_torch_multitable_sharded.py)."""
     coll, _ = _pair()
-    with pytest.raises(NotImplementedError, match="P11"):
-        P11_CALLS[name](coll)
+    if name == "plan_placement":
+        with pytest.raises(NotImplementedError, match="planner"):
+            coll.plan_placement(4, batch=64)
+        return
+    rng = np.random.default_rng(5)
+    mesh = one_rank_mesh
+    tables, idx = _t(_tables(rng, coll, integer=False)), _t(_idx(rng, coll))
+    gys = {k: torch.from_numpy(rng.standard_normal((B, c.width)).astype(np.float32))
+           for k, c in coll.configs.items()}
+    shard = coll.shard(tables, mesh)
+    if name == "shard":
+        _eq(shard, tables)
+    elif name == "adagrad_init_sharded":
+        _eq(coll.adagrad_init_sharded(mesh, device="cpu"), coll.adagrad_init(device="cpu"))
+    elif name == "apply_sharded":
+        _eq(coll.apply_sharded(shard, idx, mesh=mesh), coll.apply(tables, idx))
+    elif name == "sgd_update_sharded":
+        _eq(coll.sgd_update_sharded(shard, idx, gys, mesh=mesh, lr=0.1),
+            coll.sgd_update({k: v.clone() for k, v in tables.items()}, idx, gys, lr=0.1))
+    else:
+        acc = coll.adagrad_init(device="cpu")
+        got = coll.adagrad_update_sharded(shard, coll.adagrad_init_sharded(mesh, device="cpu"),
+                                          idx, gys, mesh=mesh, lr=0.1)
+        want = coll.adagrad_update({k: v.clone() for k, v in tables.items()}, acc, idx, gys,
+                                   lr=0.1)
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
 
 
 def test_init_is_the_jax_law_on_the_requested_device(monkeypatch):

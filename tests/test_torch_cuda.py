@@ -736,3 +736,73 @@ def test_pipeline_hands_over_on_the_callers_stream(gen):
             assert got.is_cuda
             doubled = got * 2  # a kernel on the caller's stream reads it
             assert torch.equal(doubled.cpu(), torch.from_numpy(remap[raw]) * 2)
+
+
+def test_offloaded_lookup_and_step_run_the_kernels(gen):
+    """The host-offloaded table on the card: the lookup is one K1 launch
+    equal to K1 on the resident table bit for bit, and an SGD and an
+    AdaGrad step (K3 compressed on the head) match the same table on the
+    CPU (the plain path) within fp32 rtol = atol = 1e-5."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    V, hot, W, B, H = 4096, 1024, 64, 256, 8
+    table = rng.standard_normal((V, W)).astype(np.float32)
+    idx = np.where(rng.random((B, H)) < 0.7, rng.integers(0, hot, (B, H)),
+                   rng.integers(hot, V, (B, H))).astype(np.int32)
+    gy = rng.standard_normal((B, W)).astype(np.float32)
+    card = tce.HostOffloadTable(table, hot, cold_cap=B * H)
+    cpu = tce.HostOffloadTable(table, hot, cold_cap=B * H, device="cpu")
+    k1 = cuda_forward.embedding_forward_cuda
+    n1 = k1.launches
+    batch = card.prepare(idx)
+    got = card.lookup(batch, mode=tce.CombineMode.MEAN)
+    assert k1.launches == n1 + 1
+    coeff = torch.full((B, H), 1.0 / H, device="cuda")
+    want = tce.embedding_lookup(torch.from_numpy(table).cuda(), torch.from_numpy(idx).cuda(),
+                                coeff)
+    assert torch.equal(got, want)
+    k3 = cuda_backward.embedding_backward_cuda_compressed
+    n3 = k3.launches
+    card.sgd_update(batch, torch.from_numpy(gy).cuda(), lr=0.1)
+    cpu.sgd_update(cpu.prepare(idx), torch.from_numpy(gy), lr=0.1)
+    card.adagrad_init()
+    cpu.adagrad_init()
+    card.adagrad_update(card.prepare(idx), torch.from_numpy(gy).cuda(), lr=0.1)
+    cpu.adagrad_update(cpu.prepare(idx), torch.from_numpy(gy), lr=0.1)
+    assert k3.launches == n3 + 2
+    np.testing.assert_allclose(card.full_table(), cpu.full_table(), rtol=1e-5, atol=1e-5)
+
+
+def test_one_rank_nccl_sharded_lookup_and_update(gen, tmp_path):
+    """The parallel layer over NCCL at world size 1 on the card: the routed
+    and the row-sharded lookups equal the plain lookup bit for bit (one
+    rank: the same rows in the same order), and the routed AdaGrad update
+    equals the plain path's within fp32 rtol = atol = 1e-5."""
+    import torch.distributed as dist
+
+    from cuembed_tpu_torch import parallel, train
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        V, W, B, H = 1000, 64, 128, 8
+        table = torch.randn((V, W), device="cuda", generator=gen)
+        idx = torch.randint(0, V, (B, H), device="cuda", generator=gen)
+        w = torch.rand((B, H), device="cuda", generator=gen)
+        plain = tce.embedding_lookup(table, idx, w, backend="xla")
+        assert torch.equal(parallel.alltoall_row_sharded_lookup(table, idx, w, mesh=mesh),
+                           plain)
+        assert torch.equal(parallel.row_sharded_lookup(table, idx, w, mesh=mesh), plain)
+        gy = torch.randn((B, W), device="cuda", generator=gen)
+        t1, a1 = table.clone(), torch.zeros(V, device="cuda")
+        t2, a2 = table.clone(), torch.zeros(V, device="cuda")
+        parallel.sharded_rowwise_adagrad_sparse_update(t1, a1, idx, gy, mesh=mesh, lr=0.1,
+                                                       weights=w)
+        train.rowwise_adagrad_sparse_update(t2, a2, idx, gy, lr=0.1, weights=w,
+                                            backend="xla")
+        torch.testing.assert_close(t1, t2, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a1, a2, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

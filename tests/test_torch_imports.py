@@ -56,3 +56,16 @@ def test_scan_sees_the_port():
     assert "examples/train_dlrm.py" not in names  # the JAX trainer
     assert _forbidden("jax.numpy") and _forbidden("cuembed_tpu.ops")
     assert not _forbidden("cuembed_tpu_torch.ops")
+
+
+def test_scan_sees_the_parallel_layer():
+    """The host-offloaded table, the parallel layer and the sharded trainer
+    are scanned, and the JAX sharded trainer is not."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("offload.py", "parallel/__init__.py", "parallel/sharding.py",
+                   "parallel/collectives.py", "parallel/sharded_lookup.py",
+                   "parallel/alltoall_lookup.py", "parallel/train.py",
+                   "parallel/multihost.py", "parallel/dryrun.py"):
+        assert f"cuembed_tpu_torch/{module}" in names
+    assert "examples/train_dlrm_sharded_torch.py" in names
+    assert "examples/train_dlrm_sharded.py" not in names
