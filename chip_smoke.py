@@ -117,7 +117,24 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    fused DLRM group (8 tables): its lookup against the per-table routed
    lookups bit for bit, its AdaGrad update and theirs held to the float64
    step.
-10. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
+10. The placement planner (the rest of P11), each run counted in its rank
+   with the plain versions forbidden. benchmarks/planner_validation.py's
+   four table mixes (skewed 10M x 128 bf16, uniform 10M x 128 bf16, wide
+   512K x 512 fp32, huge 16M x 256 bf16; 14.4 GB) and plan_and_train's
+   genre table, planned by ``plan_placement`` from calibration counts
+   (``PLAN_OVERRIDE`` printed) onto a (2, 2) mesh of 4 ranks on cuda:0 over
+   gloo: every placement; 2 AdaGrad steps of ``planned_lookup`` and
+   ``planned_adagrad_update`` at batch 65536, a ``planned_sgd_update`` and
+   a sharded-CSR request on the replicated and the row-sharded table; every
+   lookup against the plain version and the float64 combine, every update
+   at its touched rows against the float64 step beside the plain path's,
+   rows no step touched held to their bits. ``examples/plan_and_train_torch.py``
+   at its defaults on the 4 ranks and at world size 1 over NCCL, its first
+   and last steps replayed. The ``CostModel`` calibration: every feasible
+   placement of each mix on one card of a (2, 4) mesh (lookup and AdaGrad
+   update timed, plus the plan's comm bytes over the data sheet's NVLink
+   rate) against ``plan()``'s pick, and the sweeps the defaults come from.
+11. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
@@ -621,6 +638,36 @@ def sum_error_ratio(got, exact, mass, count, sum_bits):
     return ((got.double() - exact).abs() / tol).max().item()
 
 
+def adagrad_accum_bound(a0, exact, e):
+    """The float64 row-wise AdaGrad accumulator ``a0 + mean(g^2)`` from the
+    float64 row sums ``exact`` of fp32 sums within ``e`` of them, and the
+    bound on an fp32 path's error there (the sums' error, the squares, the
+    mean and the add): ``(a, da)``."""
+    u, big = 2.0 ** -24, exact.abs() + e
+    a = a0 + (exact * exact).mean(dim=1)
+    da = ((2 * exact.abs() * e + e * e).mean(dim=1)
+          + (exact.shape[1] + 3) * u * (a0 + (big * big).mean(dim=1)))
+    return a, da
+
+
+def check_accumulators(name, after, before, sums):
+    """Row-wise AdaGrad accumulators after one step ({label: accumulator at
+    the step's rows}) from ``before`` (at the same rows), held to the
+    float64 accumulator from the row sums ``sums`` = (exact, mass, count)
+    within ``adagrad_accum_bound`` plus one ulp. Returns the worst ratio."""
+    exact, mass, count = sums
+    a, da = adagrad_accum_bound(before.double(), exact,
+                                sum_bound(exact, mass, count, 24, torch.float32))
+    tol = da + ulp(a.float()).double()
+    ratios = {k: ((v.double() - a).abs() / tol).max().item() if v.numel() else 0.0
+              for k, v in after.items()}
+    print(f"[{name}] accumulators against the float64 step, error over its bound (at most 1 "
+          f"passes): {', '.join(f'{k} {v:.3g}' for k, v in ratios.items())}")
+    if max(ratios.values()) > 1:
+        raise SystemExit(f"[{name}] an accumulator is off the float64 step")
+    return max(ratios.values())
+
+
 def check_fp32_step(name, after, before, uniq, sums, lr, acc=None, eps=1e-8):
     """One sparse step of an fp32 table from ``before`` on each path of
     ``after`` ({label: table after}, one of them "plain path"), held to the
@@ -645,10 +692,7 @@ def check_fp32_step(name, after, before, uniq, sums, lr, acc=None, eps=1e-8):
         tol = lr * e + 4 * u * lr * big
     else:
         acc_before, acc_after = acc
-        a0 = acc_before[uniq].double()
-        a = a0 + (g * g).mean(dim=1)
-        da = ((2 * g.abs() * e + e * e).mean(dim=1)
-              + (g.shape[1] + 3) * u * (a0 + (big * big).mean(dim=1)))
+        a, da = adagrad_accum_bound(acc_before[uniq].double(), g, e)
         amin = (a - da).clamp(min=0) + eps
         smax = lr / torch.sqrt(amin)
         ds = lr * da / (2 * amin ** 1.5) + 4 * u * smax
@@ -1131,13 +1175,22 @@ def compare_in_chunks(out, table, idx, offsets=None, weights=None, **kw):
     return err
 
 
-def check_lookup_plain(name, outs, table, idx, weights=None, mode=tce.CombineMode.SUM):
+def check_lookup_plain(name, outs, table, idx, weights=None, mode=tce.CombineMode.SUM,
+                       hot=None):
     """Lookups of a fixed batch ({label: output}) and the plain version on
     the same table and ids, each held to the float64 combine within the
-    row sums' recursive-sum bound (``sum_bound``), in chunks of batch rows.
-    Returns max |output - plain|."""
+    row sums' recursive-sum bound (``sum_bound``); in chunks of batch rows.
+    With ``hot`` the lookups are a hybrid table's (SUM only): its head
+    (rows below ``hot``) and its tail each round their partial sum to the
+    table's type before the two are added, so the plain version is the same
+    split, a plain head lookup and a plain tail lookup rounded the same way,
+    and the bound gains one rounding of the terms' magnitudes a part. The
+    hybrid's difference from the plain lookup of the whole table is printed
+    on its own line. Returns max |output - plain| at the same arithmetic."""
     hotness = idx.shape[1]
-    ratios, err = dict.fromkeys(list(outs) + ["plain path"], 0.0), 0.0
+    if hot is not None and mode != tce.CombineMode.SUM:
+        raise ValueError("a hybrid lookup is checked in SUM mode")
+    ratios, err, split_err = dict.fromkeys(list(outs) + ["plain path"], 0.0), 0.0, 0.0
     for s0 in range(0, idx.shape[0], COMPARE_ROWS):
         ids = idx[s0:s0 + COMPARE_ROWS]
         w = None if weights is None else weights[s0:s0 + COMPARE_ROWS]
@@ -1153,6 +1206,15 @@ def check_lookup_plain(name, outs, table, idx, weights=None, mode=tce.CombineMod
         exact, mass = terms.sum(dim=1), terms.abs().sum(dim=1)
         bound = sum_bound(exact, mass, hotness, 24, table.dtype)
         chunk = {label: out[s0:s0 + COMPARE_ROWS] for label, out in outs.items()}
+        if hot is not None:
+            bound = bound + 2 * 2.0 ** -BITS[table.dtype] * mass
+            is_hot = ids < hot
+            cw = torch.ones(ids.shape, dtype=torch.float32, device=ids.device) if w is None else w
+            head = plain(table[:hot], torch.where(is_hot, ids, torch.zeros_like(ids)), None,
+                         torch.where(is_hot, cw, torch.zeros_like(cw)))
+            tail = plain(table, ids, None, torch.where(is_hot, torch.zeros_like(cw), cw))
+            whole, want = want, (head.float() + tail.float()).to(table.dtype)
+            split_err = max(split_err, max(max_abs_err(got, whole) for got in chunk.values()))
         for label, got in list(chunk.items()) + [("plain path", want)]:
             if not torch.isfinite(got).all():
                 raise SystemExit(f"[{name}] {label}: a non-finite output")
@@ -1162,6 +1224,10 @@ def check_lookup_plain(name, outs, table, idx, weights=None, mode=tce.CombineMod
     print(f"[{name}] {idx.shape[0]} x {hotness} against the float64 combine, error over its "
           f"bound (at most 1 passes): {', '.join(f'{k} {v:.3g}' for k, v in ratios.items())}"
           f"; max |kernel path - plain path| {err}")
+    if hot is not None:
+        print(f"[{name}] hybrid (head and tail rounded apart) against the plain lookup of the "
+              f"whole table: max |difference| {split_err} (the split's roundings, within "
+              f"the bound above)")
     if max(ratios.values()) > 1:
         raise SystemExit(f"[{name}] a lookup is off the float64 combine")
     return err
@@ -2614,6 +2680,620 @@ def phase_parallel(seed, idx):
     return launches + one_launches, e1, e3
 
 
+# -- ROADMAP P11's planner: a planned collection at full size, the planner's
+# example, and the CostModel calibration -----------------------------------------
+
+PLAN_MESH = (2, 2)  # (data, model): 4 gloo ranks on the card
+PLAN_RANKS = PLAN_MESH[0] * PLAN_MESH[1]
+# benchmarks/planner_validation.py's four mixes and examples/plan_and_train.py's
+# genre table: (name, rows, width, hotness, dtype, alpha).
+PLAN_TABLES = (("skewed", 10_000_000, 128, 32, torch.bfloat16, 1.15),
+               ("uniform", 10_000_000, 128, 32, torch.bfloat16, 0.0),
+               ("wide", 512 * 1024, 512, 16, torch.float32, 1.05),
+               ("huge", 16_000_000, 256, 64, torch.bfloat16, 1.05),
+               ("genre", 512, 32, 2, torch.float32, 0.0))
+# The card's defaults place the huge table hybrid (its calibrated head-hit
+# rate is about 0.70) and, past that, column-sharded (its width splits into
+# full lane tiles over the 2 model shards, and column_rows_max is 64M rows);
+# with these two thresholds it takes the grid placement, so that every
+# placement runs.
+PLAN_OVERRIDE = dict(hybrid_min_hit_rate=0.8, column_rows_max=1 << 22)
+PLAN_STEPS = 2  # AdaGrad steps; then one SGD step
+PLAN_SGD_LR = 0.05
+# Per rank: each AdaGrad step's lookups (K1: replicated, row-sharded, column,
+# grid, and the hybrid's head and tail) and updates (K3 compressed, one a
+# table and a second for the hybrid's head of 88,472 rows); the SGD step's
+# updates; the sharded-CSR request on the replicated and the row-sharded
+# table (K2).
+PLAN_STEP_EXPECT, PLAN_SGD_EXPECT, PLAN_CSR_EXPECT = (6, 0, 0, 6), (0, 0, 0, 6), (0, 2, 0, 0)
+# The planner's example, a rank, its 5 steps: 4 ranks place genre replicated,
+# item row-sharded and user hybrid (4 K1, 3 K3 compressed a step); one rank
+# replicates all three (3 and 3).
+PLAN_EXAMPLE_EXPECT = {4: (20, 0, 0, 15), 1: (15, 0, 0, 15)}
+# The example's pooled norms on 4 ranks against one, a secondary check beside
+# the replays (the hybrid's two partial sums round apart).
+PLAN_NORM_RTOL = 1e-3
+# The calibration: benchmarks/planner_validation.py's method for one card of
+# a (data, model) = (CAL_COLS, CAL_SHARDS) mesh: plan()'s n_shards and
+# col_shards.
+CAL_SHARDS, CAL_COLS = 4, 2
+# The sweeps the CostModel defaults come from, each placement against
+# row_sharded: (field, placement, width, dtype, hotness, alpha, rows): a
+# uniform width-128 bf16 table of 16 MiB .. 1 GiB; the wide mix's shape
+# over 128K .. 64M rows (32 GiB a shard, two thirds of the default budget's
+# rows for that shape); the huge mix's shape at 4 MiB .. 2 GiB a shard
+# row-sharded (smaller tables replicate first: replicate_bytes_max is 32 MiB
+# a shard at CAL_SHARDS).
+CAL_SWEEPS = (
+    ("replicate_bytes_max", "replicated", 128, torch.bfloat16, 32, 0.0,
+     [s * 2**20 // 256 for s in (16, 32, 64, 128, 256, 512, 1024)]),
+    ("column_rows_max", "column_sharded", 512, torch.float32, 16, 1.05,
+     [v * 1024 for v in (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)]),
+    ("grid_bytes_min", "grid_sharded", 256, torch.bfloat16, 64, 1.05,
+     [f * 2**20 * CAL_SHARDS // 512 for f in (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)]),
+)
+
+
+def plan_configs():
+    return [tce.TableConfig(n, v, w, hotness=h, dtype=dt) for n, v, w, h, dt, _ in PLAN_TABLES]
+
+
+def plan_table(seed, i):
+    """Planned table ``i`` (the package's init law, drawn on the card from one
+    seed), the same in every process."""
+    _, rows, width, _, dtype, _ = PLAN_TABLES[i]
+    g = torch.Generator(device="cuda").manual_seed(seed * 100 + 70 + i)
+    return init_table_(torch.empty((rows, width), dtype=dtype, device="cuda"), g)
+
+
+def plan_grad(seed, step, i):
+    """The pooled-output gradient of table ``i`` at ``step`` (fp32, on the card)."""
+    g = torch.Generator(device="cuda").manual_seed(seed * 100 + 80 + 10 * step + i)
+    return torch.randn((BATCH, PLAN_TABLES[i][2]), device="cuda", generator=g)
+
+
+def plan_ids(seed):
+    """Calibration ids and the steps' ids of every table (numpy, the
+    package's generator): ``{f"{name}/{k}"}``, k = "calib", 0 .. PLAN_STEPS;
+    and the sharded-CSR request on genre and uniform."""
+    out = {}
+    for i, (name, rows, _, hotness, _, alpha) in enumerate(PLAN_TABLES):
+        gen = PowerLawGenerator(rows - 1, hotness, alpha, seed=seed + 90 + i, dtype=np.int64)
+        out[f"{name}/calib"] = gen.sample(BATCH)
+        for k in range(PLAN_STEPS + 1):
+            out[f"{name}/{k}"] = gen.sample(BATCH)
+    rng = np.random.default_rng(seed + 99)
+    for name in ("genre", "uniform"):  # per-sample hotness U{0..H}, as bench.py --csr
+        ids = out[f"{name}/0"]
+        per = rng.integers(0, ids.shape[1] + 1, BATCH)
+        out[f"{name}/csr_offsets"] = np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
+        out[f"{name}/csr"] = ids[np.arange(ids.shape[1])[None, :] < per[:, None]]
+    return out
+
+
+# Block specs by placement: the batch, the pooled output (and its gradient,
+# unless named here), the table's parts and their accumulators.
+PLAN_IDX_SPEC = {"column_sharded": ("data", None)}
+PLAN_GY_SPEC = {"column_sharded": ("data", "model"), "grid_sharded": ("model", "data")}
+PLAN_PART_SPECS = {"replicated": [((), ())], "column_sharded": [((None, "model"), ())],
+                   "row_sharded": [(("model", None), ("model",))],
+                   "grid_sharded": [(("model", "data"), ("model",))],
+                   "hybrid": [((), ()), (("model", None), ("model",))]}
+
+
+def plan_parts(p, name, placed, accums, model_index):
+    """This rank's parts of table ``name``: (block, accumulator, global row of
+    its first row) each; a hybrid table has its head and its tail block."""
+    placement = p.tables[name].placement
+    if placement == "hybrid":
+        (head, tail), (hacc, tacc) = placed[name], accums[name]
+        return [(head, hacc, 0), (tail, tacc, head.shape[0] + model_index * tail.shape[0])]
+    t, a = placed[name], accums[name]
+    lo = model_index * t.shape[0] if placement in ("row_sharded", "grid_sharded") else 0
+    return [(t, a, lo)]
+
+
+def row_fingerprints(t):
+    """One int64 a row of ``t`` from its bits (a weighted sum with fixed odd
+    weights, in chunks of rows): rows with other bits differ but by chance."""
+    bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    if bits.dim() == 1:
+        return bits.long()
+    g = torch.Generator(device=t.device).manual_seed(1)
+    w = torch.randint(1, 2**62, (t.shape[1],), device=t.device, generator=g) * 2 + 1
+    return torch.cat([(bits[r0:r0 + (1 << 18)].long() * w).sum(dim=1)
+                      for r0 in range(0, t.shape[0], 1 << 18)])
+
+
+def plan_rank_steps(p, mesh, ids_np, seed, rank, tmp):
+    """(a) in a rank: cut the blocks, run the counted steps and the CSR
+    request, and save per table what the parent's replay needs: the pooled
+    blocks and, at each step's touched rows, this rank's parts after the
+    step. Rows the step did not touch must keep their bits (checked here,
+    by fingerprints). Returns (launches, counted seconds, rows changed
+    untouched, {"cut": seconds to cut the blocks, "saved": seconds to
+    fingerprint, copy and save})."""
+    from cuembed_tpu_torch import parallel as par
+    from cuembed_tpu_torch.parallel.sharding import axis_index
+
+    t0 = time.perf_counter()
+    names = [t[0] for t in PLAN_TABLES]
+    placed = {}
+    for i, name in enumerate(names):  # one global table at a time
+        placed.update(par.apply_plan(p, {name: plan_table(seed, i)}, mesh))
+        torch.cuda.empty_cache()
+    accums = par.planned_adagrad_init(p, placed, mesh)
+    times = {"cut": time.perf_counter() - t0, "saved": 0.0}
+    m = axis_index(mesh, "model")
+    kinds = {n: tp.placement for n, tp in p.tables.items()}
+    res = {n: {} for n in names}
+    launches, seconds, strays = np.zeros(4, np.int64), 0.0, 0
+    for k in range(PLAN_STEPS + 1):
+        glob = {n: torch.from_numpy(ids_np[f"{n}/{k}"]).cuda() for n in names}
+        idx = {n: par.local_block(glob[n], mesh, PLAN_IDX_SPEC.get(kinds[n], ("model", None)))
+               for n in names}
+        gys = {n: par.local_block(plan_grad(seed, k, i), mesh,
+                                  PLAN_GY_SPEC.get(kinds[n], ("model", None)))
+               for i, n in enumerate(names)}
+        before = {n: [(row_fingerprints(t), row_fingerprints(a))
+                      for t, a, _ in plan_parts(p, n, placed, accums, m)] for n in names}
+
+        def step():
+            if k == PLAN_STEPS:
+                par.planned_sgd_update(p, placed, idx, gys, mesh=mesh, lr=PLAN_SGD_LR)
+                return None
+            pooled = par.planned_lookup(p, placed, idx, mesh=mesh)
+            par.planned_adagrad_update(p, placed, accums, idx, gys, mesh=mesh, lr=ADAGRAD_LR)
+            return pooled
+        expect = PLAN_STEP_EXPECT if k < PLAN_STEPS else PLAN_SGD_EXPECT
+        pooled, got, secs = par_counted(expect, f"planner step {k}", step)
+        launches += got
+        seconds += secs
+        t1 = time.perf_counter()
+        for n in names:
+            touched = torch.unique(glob[n])
+            saved = []
+            for (t, a, lo), (ft, fa) in zip(plan_parts(p, n, placed, accums, m), before[n]):
+                sel = touched[(touched >= lo) & (touched < lo + t.shape[0])] - lo
+                hit = torch.zeros(t.shape[0], dtype=torch.bool, device="cuda")
+                hit[sel] = True
+                strays += int(((row_fingerprints(t) != ft) & ~hit).sum())
+                strays += int(((row_fingerprints(a) != fa) & ~hit).sum())
+                saved.append((t[sel].cpu(), a[sel].cpu()))
+            res[n][k] = {"parts": saved,
+                         "pooled": None if pooled is None else pooled[n].cpu()}
+        times["saved"] += time.perf_counter() - t1
+    # One request in sharded-CSR blocks on the replicated and a routed table.
+    csr = {}
+    for n in ("genre", "uniform"):
+        ib, ob, _ = par.shard_csr(ids_np[f"{n}/csr"], ids_np[f"{n}/csr_offsets"], PLAN_MESH[1])
+        csr[n] = (par.local_block(torch.from_numpy(ib).cuda(), mesh, ("model", None)),
+                  par.local_block(torch.from_numpy(ob).cuda(), mesh, ("model", None)))
+    out, got, secs = par_counted(
+        PLAN_CSR_EXPECT, "planner csr request",
+        lambda: par.planned_lookup(p, placed, {n: c[0] for n, c in csr.items()},
+                                   offsets={n: c[1] for n, c in csr.items()}, mesh=mesh))
+    launches += got
+    seconds += secs
+    t1 = time.perf_counter()
+    for n in names:
+        if n in out:
+            res[n]["csr"] = out[n].cpu()
+        torch.save(res[n], f"{tmp}/rank{rank}_{n}.pt")
+    times["saved"] += time.perf_counter() - t1
+    return launches, seconds, strays, times
+
+
+def plan_rank(rank, world, tmp, seed):
+    """One rank of phase_planner's (a) and (b) on cuda:0 over gloo."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from cuembed_tpu_torch import parallel as par
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_GLOO_TIMEOUT_S))
+    out = {}
+    try:
+        p = torch.load(f"{tmp}/plan.pt", weights_only=False)
+        ids_np = dict(np.load(f"{tmp}/ids.npz"))
+        out["a"] = plan_rank_steps(p, par.make_mesh(n_model=PLAN_MESH[1]), ids_np, seed,
+                                   rank, tmp)
+        torch.cuda.empty_cache()
+        example = load_example("plan_and_train_torch")
+        args = example.parse_args([])
+        out["b"] = par_counted(
+            PLAN_EXAMPLE_EXPECT[world], "planner example",
+            lambda: example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1)))
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def gather_parts(blocks, placement, k):
+    """Table and accumulator rows at step ``k``'s touched rows, from every
+    rank's parts: each part assembled under its specs, the parts in row
+    order."""
+    ts, accs = [], []
+    for j, (tspec, aspec) in enumerate(PLAN_PART_SPECS[placement]):
+        ts.append(assemble([b[k]["parts"][j][0] for b in blocks], tspec, PLAN_MESH))
+        accs.append(assemble([b[k]["parts"][j][1] for b in blocks], aspec, PLAN_MESH))
+    return torch.cat(ts).cuda(), torch.cat(accs).cuda()
+
+
+def check_planned(p, ids_np, seed, tmp):
+    """(a) in the parent, a table at a time: the global table drawn again
+    and stepped along the ranks' results. Each step's pooled output
+    (assembled) against the plain version and the float64 combine
+    (``check_lookup_plain``); each update at its touched rows, beside the
+    plain path's update of the same rows, against the float64 step
+    (``check_fp32_step`` for fp32 tables, ``check_sparse_step`` and
+    ``check_accumulators`` for bf16 ones); the CSR request against the
+    plain version and the float64 combine. Returns max |kernel - plain| of
+    K1, K2 and K3."""
+    e1 = e2 = e3 = 0.0
+    for i, (name, rows, width, hotness, dtype, _) in enumerate(PLAN_TABLES):
+        kind = p.tables[name].placement
+        blocks = [torch.load(f"{tmp}/rank{r}_{name}.pt", weights_only=False)
+                  for r in range(PLAN_RANKS)]
+        cur = plan_table(seed, i)
+        acc = torch.zeros(rows, device="cuda")
+        out_spec = ("data", None) if kind == "column_sharded" else ("model", None)
+        for k in range(PLAN_STEPS + 1):
+            ids = torch.from_numpy(ids_np[f"{name}/{k}"]).cuda()
+            label = f"planner {name} ({kind}) step {k}"
+            if k < PLAN_STEPS:
+                pooled = assemble([b[k]["pooled"] for b in blocks], out_spec, PLAN_MESH).cuda()
+                e1 = max(e1, check_lookup_plain(
+                    f"{label} lookup", {kind: pooled}, cur, ids,
+                    hot=p.tables[name].hot_rows if kind == "hybrid" else None))
+            touched = torch.unique(ids)
+            got_t, got_a = gather_parts(blocks, kind, k)
+            local = torch.searchsorted(touched, ids)
+            old, a0, gy = cur[touched], acc[touched], plan_grad(seed, k, i)
+            plain_t, plain_a = old.clone(), a0.clone()
+            uniq, *sums = float64_runs(gy, *fixed_coo(local), None, local.numel())
+            if k == PLAN_STEPS:
+                train.sgd_sparse_update(plain_t, local, gy, lr=PLAN_SGD_LR, backend="xla")
+            else:
+                train.rowwise_adagrad_sparse_update(plain_t, plain_a, local, gy, lr=ADAGRAD_LR,
+                                                    backend="xla")
+            if dtype == torch.float32:
+                e3 = max(e3, check_fp32_step(
+                    f"{label} update", {kind: got_t, "plain path": plain_t}, old, uniq, sums,
+                    PLAN_SGD_LR if k == PLAN_STEPS else ADAGRAD_LR,
+                    acc=None if k == PLAN_STEPS else (a0, {kind: got_a, "plain path": plain_a})))
+            else:
+                e3 = max(e3, check_sparse_step(f"{label} update", got_t, plain_t, old, uniq))
+                if k < PLAN_STEPS:
+                    check_accumulators(f"{label} update", {kind: got_a, "plain path": plain_a},
+                                       a0, sums)
+            if k == PLAN_STEPS and not torch.equal(got_a, a0):
+                raise SystemExit(f"[{label}] SGD changed the accumulators")
+            cur[touched], acc[touched] = got_t, got_a
+            del plain_t, plain_a, got_t, got_a, old, sums
+        if "csr" in blocks[0]:
+            flat = torch.from_numpy(ids_np[f"{name}/csr"]).cuda()
+            offsets = torch.from_numpy(ids_np[f"{name}/csr_offsets"]).cuda()
+            out = assemble([b["csr"] for b in blocks], ("model", None, None),
+                           PLAN_MESH).reshape(BATCH, width).cuda()
+            e2 = max(e2, compare_in_chunks(out, cur, flat, offsets))
+            per = offsets[1:] - offsets[:-1]
+            live = torch.arange(hotness, device="cuda")[None, :] < per[:, None]
+            fixed = torch.zeros((BATCH, hotness), dtype=torch.int64, device="cuda")
+            fixed[live] = flat
+            check_lookup_plain(f"planner {name} ({kind}) csr request", {kind: out}, cur,
+                               fixed, weights=live.float())
+        del cur, acc, blocks
+        torch.cuda.empty_cache()
+    return e1, e2, e3
+
+
+def check_planned_example(label, results, shape):
+    """(b): each step the planner's example recorded, replayed on one table
+    per embedding table from the ranks' assembled blocks: the planned
+    lookups held, beside the plain version, to the float64 combine; the
+    planned AdaGrad updates (``grad_y = 2 * pooled``), beside the plain
+    path's update with the same ids, to the float64 step. Returns max
+    |planned - plain| of the lookups (K1) and of the updates (K3)."""
+    example = load_example("plan_and_train_torch")
+    p = results[0]["plan"]
+    e1 = e3 = 0.0
+    for step in results[0]["record"]:
+        recs = [r["record"][step] for r in results]
+        for nm, tp in p.tables.items():
+            kind = tp.placement
+
+            def table(key, which):
+                specs = PLAN_PART_SPECS[kind]
+                if kind == "hybrid":
+                    return torch.cat([assemble([r[key][nm][j] for r in recs], s[which], shape)
+                                      for j, s in enumerate(specs)]).cuda()
+                return assemble([r[key][nm] for r in recs], specs[0][which], shape).cuda()
+            rows = next(c.num_categories for c in example.table_configs() if c.name == nm)
+            before, acc0 = table("tables", 0)[:rows], table("accums", 1)[:rows]
+            after, acc1 = table("tables_after", 0)[:rows], table("accums_after", 1)[:rows]
+            ids = assemble([r["ids"][nm] for r in recs], ("model", None), shape).cuda()
+            pooled = assemble([r["pooled"][nm] for r in recs], ("model", None), shape).cuda()
+            name = f"planner example {label}, step {step}, {nm} ({kind})"
+            e1 = max(e1, check_lookup_plain(f"{name} lookup", {"planned": pooled}, before, ids,
+                                            hot=tp.hot_rows if kind == "hybrid" else None))
+            gy = 2.0 * pooled
+            plain_t, plain_a = before.clone(), acc0.clone()
+            train.rowwise_adagrad_sparse_update(plain_t, plain_a, ids, gy, lr=example.LR,
+                                                backend="xla")
+            uniq, *sums = float64_runs(gy, *fixed_coo(ids), None, ids.numel())
+            e3 = max(e3, check_fp32_step(
+                f"{name} adagrad", {"planned": after, "plain path": plain_t}, before, uniq,
+                sums, example.LR, acc=(acc0, {"planned": acc1, "plain path": plain_a})))
+    return e1, e3
+
+
+def card_ids(rows, hotness, alpha, gen):
+    """Power-law ids in [1, rows - 1] drawn on the card by datagen's inverse
+    CDF (``translate_to_power_law``), without the per-sample
+    de-duplication: timing inputs for the calibration."""
+    u = torch.rand((BATCH, hotness), dtype=torch.float64, device="cuda", generator=gen)
+    if alpha == 0.0:
+        y = 1.0 + u * (rows - 1)
+    elif alpha == 1.0:
+        y = (rows - 1.0) ** u
+    else:
+        g = 1.0 - alpha
+        y = (u * ((rows - 1.0) ** g - 1.0) + 1.0) ** (1.0 / g)
+    return y.long().clamp(1, rows - 1)
+
+
+def shard_step(placement, rows, width, dtype, ids, hot, hit, mesh1):
+    """The lookup and row-wise AdaGrad update ``placement`` gives one card of
+    a (data, model) = (CAL_COLS, CAL_SHARDS) mesh for a table of ``rows`` x
+    ``width`` under the global batch ``ids``, on a one-rank group (its
+    collectives are the identity). Replicated, row-sharded and hybrid
+    tables are replicated over data: the card's block and its model block
+    of the batch (ids folded into the block's rows), the replicated update
+    over the whole batch. Column blocks take the width over model, the
+    batch over data for the lookup and the whole batch for the update.
+    Grid blocks take the rows over model and the width over data, and the
+    card's model block of the batch. Returns the step as a function."""
+    from cuembed_tpu_torch import parallel as par
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n, c = CAL_SHARDS, CAL_COLS
+    lr = 1e-6
+
+    def new(r, w):
+        return init_table_(torch.empty((r, w), dtype=dtype, device="cuda"), g)
+
+    def grads(b, w):
+        return torch.randn((b, w), device="cuda", generator=g)
+    local = ids[:BATCH // n]
+    if placement == "replicated":
+        t, a, gy = new(rows, width), torch.zeros(rows, device="cuda"), grads(BATCH, width)
+
+        def step():
+            tce.embedding_lookup(t, local)
+            train.rowwise_adagrad_sparse_update(t, a, ids, gy, lr=lr)
+    elif placement == "row_sharded":
+        r = -(-rows // n)
+        t, a, gy, il = new(r, width), torch.zeros(r, device="cuda"), grads(BATCH // n, width), local % r
+
+        def step():
+            par.alltoall_row_sharded_lookup(t, il, mesh=mesh1)
+            par.sharded_rowwise_adagrad_sparse_update(t, a, il, gy, mesh=mesh1, lr=lr)
+    elif placement == "hybrid":
+        r = -(-(rows - hot) // n)
+        head, tail = new(hot, width), new(r, width)
+        ha, ta = torch.zeros(hot, device="cuda"), torch.zeros(r, device="cuda")
+        gy = grads(BATCH // n, width)
+        il = torch.where(local < hot, local, hot + (local - hot) % r)
+        cold = max(1.0 - hit, 1e-3)
+
+        def step():
+            par.hybrid_tiered_lookup(head, tail, il, mesh=mesh1, cold_frac=cold)
+            par.sharded_hybrid_rowwise_adagrad_sparse_update(head, tail, ha, ta, il, gy,
+                                                             mesh=mesh1, lr=lr, cold_frac=cold)
+    elif placement == "column_sharded":
+        t, a, gy = new(rows, width // n), torch.zeros(rows, device="cuda"), grads(BATCH, width // n)
+        half = ids[:BATCH // c]
+
+        def step():
+            par.column_sharded_lookup(t, half, mesh=mesh1, gather_output=False)
+            par.column_sharded_rowwise_adagrad_sparse_update(t, a, ids, gy, mesh=mesh1, lr=lr)
+    else:  # grid_sharded
+        r = -(-rows // n)
+        t, a = new(r, width // c), torch.zeros(r, device="cuda")
+        gy, ir = grads(BATCH // n, width // c), local % r
+
+        def step():
+            par.grid_sharded_lookup(t, ir, mesh=mesh1, gather_output=False)
+            par.grid_sharded_rowwise_adagrad_sparse_update(t, a, ir, gy, mesh=mesh1, lr=lr)
+    return step
+
+
+def forced_plan(cfg, placement, hit):
+    """plan() of ``cfg`` alone at CAL_SHARDS shards with the card's defaults,
+    bent to ``placement``: its TablePlan (the comm estimate and, for hybrid,
+    the head rows)."""
+    from cuembed_tpu_torch.parallel import CostModel, plan
+
+    big = 1 << 62
+    cost, kw = {}, {}
+    if placement == "replicated":
+        cost = dict(replicate_bytes_max=big)
+    elif placement == "hybrid":
+        cost, kw = dict(replicate_bytes_max=0), dict(head_hit_rate={cfg.name: hit})
+    elif placement == "column_sharded":
+        cost, kw = dict(replicate_bytes_max=0, column_rows_max=big), dict(column_ok=True)
+    elif placement == "grid_sharded":
+        cost, kw = (dict(replicate_bytes_max=0, grid_bytes_min=0),
+                    dict(grid_ok=True, col_shards=CAL_COLS))
+    else:
+        cost = dict(replicate_bytes_max=0)
+    tp = plan([cfg], CAL_SHARDS, batch=BATCH, cost=CostModel(**cost), **kw).tables[cfg.name]
+    return tp if tp.placement == placement else None
+
+
+def modeled_step(cfg, placement, hit, ids, mesh1):
+    """(compute ms on the card, its median ms, comm MB, modeled step ms) of
+    ``placement``, or None where the placement cannot serve the table. The
+    compute is the least of 10 timed steps (the steps wait on the host for
+    the routing's capacity flag and the unique-row count, and the host's
+    share of the machine moves their median between calls)."""
+    from cuembed_tpu_torch.parallel.planner import NVLINK_BYTES_PER_S
+
+    tp = forced_plan(cfg, placement, hit)
+    if tp is None:
+        return None
+    step = shard_step(placement, cfg.num_categories, cfg.width, cfg.dtype, ids, tp.hot_rows,
+                      hit, mesh1)
+    st = bench.cuda_time_ms(step, warmup=2, iters=10, return_stats=True)
+    del step
+    torch.cuda.empty_cache()
+    ms, comm = st["min"] * 1e3, tp.comm_bytes_per_step / NVLINK_BYTES_PER_S * 1e3
+    return ms, st["median"] * 1e3, tp.comm_bytes_per_step / 2**20, ms + comm
+
+
+def calibrate(hits):
+    """(c) on a one-rank NCCL group: every feasible placement of each mix
+    modeled (one card's compute on a (CAL_COLS, CAL_SHARDS) mesh, timed,
+    plus the plan's comm bytes over the data sheet's NVLink rate) against
+    plan()'s pick under the port's defaults; then the sweeps the defaults
+    come from. Returns the number of mixes where plan() missed the modeled
+    winner."""
+    from cuembed_tpu_torch.parallel import CostModel, make_mesh, plan
+    from cuembed_tpu_torch.parallel.planner import NVLINK_BYTES_PER_S
+
+    mesh1 = make_mesh(n_model=1)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    places = ("replicated", "row_sharded", "hybrid", "column_sharded", "grid_sharded")
+    misses = 0
+    print(f"[planner calibration] a (data, model) = ({CAL_COLS}, {CAL_SHARDS}) mesh, batch "
+          f"{BATCH}, AdaGrad; comm at {NVLINK_BYTES_PER_S / 1e9:.0f} GB/s (NVLink, H100 SXM data "
+          f"sheet, one direction); the port's defaults {CostModel()}")
+    for cfg, (_, _, _, _, _, alpha) in zip(plan_configs()[:4], PLAN_TABLES[:4]):
+        hit = hits.get(cfg.name, 0.0)
+        pick = plan([cfg], CAL_SHARDS, batch=BATCH, head_hit_rate={cfg.name: hit},
+                    column_ok=True, grid_ok=True, col_shards=CAL_COLS).tables[cfg.name].placement
+        ids = card_ids(cfg.num_categories, cfg.hotness, alpha, gen)
+        rows = {pl: modeled_step(cfg, pl, hit, ids, mesh1) for pl in places
+                if pl != "hybrid" or hit >= CostModel().hybrid_min_hit_rate}
+        rows = {pl: r for pl, r in rows.items() if r is not None}
+        winner = min(rows, key=lambda pl: rows[pl][3])
+        misses += winner != pick
+        for pl, (ms, med, mb, total) in rows.items():
+            print(f"[planner calibration] {cfg.name} {cfg.num_categories} x {cfg.width} "
+                  f"{str(cfg.dtype)[6:]} h{cfg.hotness} alpha {alpha} hit {hit:.3f}: {pl:<14} "
+                  f"compute {ms:.4f} ms (median {med:.4f}), comm {mb:.1f} MB, modeled "
+                  f"{total:.4f} ms; winner {winner}; plan() picks {pick}"
+                  f"{'' if winner == pick else ' (MISS)'}")
+    for field, other, width, dtype, hotness, alpha, sizes in CAL_SWEEPS:
+        for rows in sizes:
+            cfg = tce.TableConfig(field, rows, width, hotness=hotness, dtype=dtype)
+            ids = card_ids(rows, hotness, alpha, gen)
+            row = modeled_step(cfg, "row_sharded", 0.0, ids, mesh1)
+            alt = modeled_step(cfg, other, 0.0, ids, mesh1)
+            nbytes = rows * width * torch.empty((), dtype=dtype).element_size()
+            print(f"[planner sweep {field}] {rows} x {width} {str(dtype)[6:]} h{hotness} alpha "
+                  f"{alpha} ({nbytes / 2**20:.0f} MiB, {nbytes / CAL_SHARDS / 2**20:.0f} MiB "
+                  f"row-sharded a shard): row_sharded compute {row[0]:.4f} ms (median "
+                  f"{row[1]:.4f}), modeled {row[3]:.4f} ms; {other} compute {alt[0]:.4f} ms "
+                  f"(median {alt[1]:.4f}), modeled {alt[3]:.4f} ms: "
+                  f"{other if alt[3] <= row[3] else 'row_sharded'} wins")
+    return misses
+
+
+def phase_planner(seed):
+    """ROADMAP P11's planner on one card, each run counted in its rank with
+    the plain versions forbidden. (a) The planner phase's collection at full
+    size (PLAN_TABLES) planned from calibration counts by
+    ``plan_placement`` and run on 4 ranks spawned on cuda:0 over gloo as a
+    (2, 2) mesh: 2 AdaGrad steps of ``planned_lookup`` and
+    ``planned_adagrad_update``, one ``planned_sgd_update``, one sharded-CSR
+    request; every lookup and update replayed in the parent. (b)
+    examples/plan_and_train_torch.py at its defaults on the same ranks, and
+    at world size 1 over NCCL in this process, its first and last steps
+    replayed on the plain path. (c) The CostModel calibration on a one-rank
+    NCCL group. Returns the launches (summed over the ranks and the NCCL
+    run) and max |kernel - plain| of K1, K2 and K3."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cuembed_tpu_torch.parallel import CostModel
+
+    t0 = time.perf_counter()
+    print(f"[planner] total_memory of the card: "
+          f"{torch.cuda.get_device_properties(0).total_memory} bytes; CostModel().hbm_bytes "
+          f"{CostModel().hbm_bytes}")
+    ids_np = plan_ids(seed)
+    coll = tce.EmbeddingCollection(plan_configs())
+    counts = coll.update_counts(coll.init_counts(),
+                                {n: ids_np[f"{n}/calib"] for n, *_ in PLAN_TABLES})
+    p = coll.plan_placement(PLAN_MESH[1], batch=BATCH, counts=counts,
+                            cost=CostModel(**PLAN_OVERRIDE), column_ok=True, grid_ok=True,
+                            col_shards=PLAN_MESH[0])
+    print(f"[planner] head-hit rates {coll.head_hit_rates(counts)}; CostModel override "
+          f"{PLAN_OVERRIDE}\n{p.summary()}")
+    kinds = {tp.placement for tp in p.tables.values()}
+    if kinds != set(PLAN_PART_SPECS):
+        raise SystemExit(f"[planner] the plan places only {sorted(kinds)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/ids.npz", **ids_np)
+        torch.save(p, f"{tmp}/plan.pt")
+        torch.multiprocessing.spawn(plan_rank, args=(PLAN_RANKS, tmp, seed), nprocs=PLAN_RANKS,
+                                    join=True)
+        spawn_s = time.perf_counter() - t0
+        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(PLAN_RANKS)]
+        launches = np.zeros(4, np.int64)
+        for o in outs:
+            launches += o["a"][0] + np.array(o["b"][1])
+        strays = sum(o["a"][2] for o in outs)
+        slow = {key: round(max(o["a"][3][key] for o in outs), 2) for key in ("cut", "saved")}
+        print(f"[planner] {PLAN_RANKS} ranks on cuda:0 over gloo: {spawn_s:.1f} s with the "
+              f"spawn; slowest rank's seconds: cutting the blocks {slow['cut']}, the counted "
+              f"steps and CSR request {max(o['a'][1] for o in outs):.2f}, fingerprints, copies "
+              f"and saves {slow['saved']}, the example {max(o['b'][2] for o in outs):.2f}; "
+              f"rows changed that no step touched: {strays}")
+        if strays:
+            raise SystemExit("[planner] an update changed rows its batch did not touch")
+        e1, e2, e3 = check_planned(p, ids_np, seed, tmp)
+    t1 = time.perf_counter()
+    e1_b, e3_b = check_planned_example(f"{PLAN_RANKS} ranks",
+                                       [o["b"][0] for o in outs], (1, PLAN_RANKS))
+    example = load_example("plan_and_train_torch")
+    args = example.parse_args([])
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                                world_size=1)
+        try:
+            with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
+                  counted(PLAN_EXAMPLE_EXPECT[1], "planner example, NCCL, world size 1")):
+                one = example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1))
+            launches += np.array(PLAN_EXAMPLE_EXPECT[1])
+            e1_one, e3_one = check_planned_example("NCCL", [one], (1, 1))
+            t2 = time.perf_counter()
+            with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
+                misses = calibrate(coll.head_hit_rates(counts))
+        finally:
+            dist.destroy_process_group()
+    four = outs[0]["b"][0]["norms"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(four, one["norms"]))
+    print(f"[planner example] pooled norms, {PLAN_RANKS} ranks {four[0]:.4f} .. {four[-1]:.4f}, "
+          f"world size 1 {one['norms'][0]:.4f} .. {one['norms'][-1]:.4f}: max relative "
+          f"difference {rel:.3g} (at most {PLAN_NORM_RTOL} passes; a secondary check beside the "
+          f"replays)")
+    if rel > PLAN_NORM_RTOL:
+        raise SystemExit("[planner example] the 4-rank norms are off the one-rank norms")
+    print(f"[planner] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, calibration "
+          f"{time.perf_counter() - t2:.1f} s; plan() missed the modeled winner on {misses} of 4 "
+          f"mixes")
+    return launches, max(e1, e1_b, e1_one), e2, max(e3, e3_b, e3_one)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2819,9 +3499,19 @@ def main():
     errs["K1"] = max(errs["K1"], e1_offload, e1_parallel)
     errs["K3"] = max(errs["K3"], e3_offload, e3_parallel)
 
+    # 10. The placement planner (the rest of P11), counted; K1, K2 and K3 only.
+    t11 = time.perf_counter()
+    p11_planner, e1_planner, e2_planner, e3_planner = phase_planner(args.seed)
+    print(f"[p11 planner] launches (K1, K2, K3 full, K3 compressed), summed over the ranks "
+          f"and the NCCL run: {tuple(int(x) for x in p11_planner)} in "
+          f"{time.perf_counter() - t11:.1f} s")
+    errs["K1"] = max(errs["K1"], e1_planner)
+    errs["K2"] = max(errs["K2"], e2_planner)
+    errs["K3"] = max(errs["K3"], e3_planner)
+
     # Launches of every counted run, (K1, K2, K3 full, K3 compressed).
     total = (launches + p7_launches + train_launches + p7_train + p8_table + p8_fused
-             + p9_dlrm + p9_trainer + p10_offload + p11_parallel)
+             + p9_dlrm + p9_trainer + p10_offload + p11_parallel + p11_planner)
     print(f"[main path] launches of every path (K1, K2, K3 full, K3 compressed): "
           f"{tuple(int(x) for x in total)}")
     kernels = []

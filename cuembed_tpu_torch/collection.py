@@ -1,5 +1,5 @@
 """Multi-table embedding collection, the counterpart of
-``cuembed_tpu/collection.py`` (its non-sharded part).
+``cuembed_tpu/collection.py``.
 
 A set of named embedding tables managed together:
 
@@ -20,9 +20,9 @@ Tables are a ``dict[str, torch.Tensor]``, as the JAX package's are a dict
 of arrays. The sharded entry points (:meth:`EmbeddingCollection.shard`,
 :meth:`~EmbeddingCollection.apply_sharded` and the routed updates) run on
 the parallel layer (:mod:`cuembed_tpu_torch.parallel`), one rank at a time
-on its blocks. Placement planning needs the planner, which is not ported
-yet: :meth:`~EmbeddingCollection.plan_placement` raises
-``NotImplementedError``.
+on its blocks; :meth:`~EmbeddingCollection.plan_placement` chooses each
+table's placement with the planner
+(:mod:`cuembed_tpu_torch.parallel.planner`) from measured head-hit rates.
 """
 
 from __future__ import annotations
@@ -48,10 +48,6 @@ from cuembed_tpu_torch.utils import frequency as freq
 # The TPU lane width the JAX package pads rows to; head_hit_rates sizes the
 # hot heads with it, as the placement planner reads them.
 LANES = 128
-
-_PLANNER = ("{} needs the placement planner (cuembed_tpu/parallel/planner.py), "
-            "which the PyTorch port does not have yet (ROADMAP P11)")
-
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
@@ -211,9 +207,45 @@ class EmbeddingCollection:
             out[name] = float(top.sum() / cnt.sum())
         return out
 
-    def plan_placement(self, n_shards: int, **kwargs):
-        """Placement over ``n_shards`` devices: needs the planner."""
-        raise NotImplementedError(_PLANNER.format("plan_placement"))
+    def plan_placement(
+        self,
+        n_shards: int,
+        *,
+        batch: int,
+        counts: Optional[Dict[str, np.ndarray]] = None,
+        cost=None,
+        column_ok: bool = False,
+        grid_ok: bool = False,
+        col_shards: int = 1,
+        hot_bytes_total: int = DEFAULT_HOT_BYTES,
+    ):
+        """Place this collection over ``n_shards`` devices.
+
+        With ``counts`` (from :meth:`update_counts`), hybrid placement is
+        considered using the measured head-hit rates; without stats no
+        table goes hybrid. Returns a
+        :class:`cuembed_tpu_torch.parallel.planner.Plan` — feed it to
+        :func:`~cuembed_tpu_torch.parallel.planner.apply_plan` and the
+        ``planned_*`` entry points. Host logic only: no device is needed.
+        """
+        from cuembed_tpu_torch.parallel.planner import plan
+
+        hits = (
+            self.head_hit_rates(counts, hot_bytes_total=hot_bytes_total)
+            if counts
+            else None
+        )
+        return plan(
+            list(self.configs.values()),
+            n_shards,
+            batch=batch,
+            cost=cost,
+            head_hit_rate=hits,
+            hot_bytes_total=hot_bytes_total,
+            column_ok=column_ok,
+            grid_ok=grid_ok,
+            col_shards=col_shards,
+        )
 
     # -- forward -------------------------------------------------------------
     def _lookup(self, name, table, idx, w, off, backend, tiered):

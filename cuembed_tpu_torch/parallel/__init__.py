@@ -1,6 +1,5 @@
 """The parallel layer of the PyTorch port, the counterpart of
-``cuembed_tpu/parallel`` (without its placement planner, which is not
-ported yet).
+``cuembed_tpu/parallel``.
 
 Tables sharded over a ``(data, model)`` ``DeviceMesh`` (row-wise,
 column-wise, row x column "grid", or a replicated hot head with a routed
@@ -10,7 +9,10 @@ routed to the rank that owns each row. Each function runs once per rank
 (SPMD over ``torch.distributed``, as ``shard_map`` runs its body once per
 device) on the rank's blocks, which
 :func:`~cuembed_tpu_torch.parallel.sharding.local_block` cuts from a global
-array. The local work is K1, K2 and K3 on the card.
+array. The placement planner (:mod:`~cuembed_tpu_torch.parallel.planner`)
+chooses each table's layout from a cost model taken on the card and
+dispatches each table's lookup and update to it. The local work is K1, K2
+and K3 on the card.
 """
 
 from cuembed_tpu_torch.parallel.sharding import (
@@ -44,6 +46,18 @@ from cuembed_tpu_torch.parallel.train import (
     sharded_rowwise_adagrad_sparse_update,
     sharded_sgd_sparse_update,
 )
+from cuembed_tpu_torch.parallel.planner import (
+    CostModel,
+    Plan,
+    PlanError,
+    TablePlan,
+    apply_plan,
+    plan,
+    planned_adagrad_init,
+    planned_adagrad_update,
+    planned_lookup,
+    planned_sgd_update,
+)
 from cuembed_tpu_torch.parallel import multihost
 
 __all__ = [
@@ -71,4 +85,14 @@ __all__ = [
     "row_sharded_lookup",
     "shard_csr",
     "column_sharded_lookup",
+    "CostModel",
+    "Plan",
+    "PlanError",
+    "TablePlan",
+    "plan",
+    "apply_plan",
+    "planned_lookup",
+    "planned_sgd_update",
+    "planned_adagrad_init",
+    "planned_adagrad_update",
 ]

@@ -35,6 +35,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from cuembed_tpu_torch.ops import dispatch
 from cuembed_tpu_torch.ops.head import head_grad
 from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
+from cuembed_tpu_torch.ops.transforms import transpose_position_ordered
 from cuembed_tpu_torch.parallel.alltoall_lookup import _local_nnz
 from cuembed_tpu_torch.parallel.collectives import all_gather, all_to_all, any_across
 from cuembed_tpu_torch.parallel.sharding import (
@@ -295,8 +296,8 @@ def _hybrid_shapes(head_table, tail_table, indices, offsets, weights, mode, n,
 
 # Head-gradient algorithm switch: up to this many head rows the gradient is
 # one product ``M^T @ grad_y`` (ops/head.py::head_grad, whose ``M`` is
-# [batch, head]); past it a scatter-add of the per-position gradient rows
-# into [head, W] is cheaper than the [batch, head] matrix.
+# [batch, head]); past it the head positions' per-row sums (K3) written into
+# [head, W] are cheaper than the [batch, head] matrix.
 HEAD_GRAD_MXU_MAX_ROWS = 16384
 
 
@@ -305,9 +306,12 @@ def _hybrid_head_grad(idx_l, offs_l, flat, sids, coeff, gy, hot):
     (summed over the axis by the caller). Small heads: one product
     ``M^T @ grad_y`` (the position-major variant over the gathered
     per-sample gradient rows for sharded CSR); dead slots carry coefficient
-    0 and positions off the head add nothing. Large heads: each position's
-    gradient row scatter-added into ``[hot, W]`` (positions off the head go
-    to a dropped spare row)."""
+    0 and positions off the head add nothing. Large heads: the head
+    positions sorted by row and summed per row on K3 (compressed; positions
+    off the head sort last as the sentinel run), written into ``[hot, W]``.
+    Both are deterministic: a scatter-add by atomics would sum a row in
+    another order on every rank, and the head's replicas along the data
+    axis, which all-reduce over the model axis only, would drift apart."""
     if hot <= HEAD_GRAD_MXU_MAX_ROWS:
         if offs_l is None:
             coeff2d = None if coeff is None else coeff.reshape(idx_l.shape)
@@ -316,12 +320,14 @@ def _hybrid_head_grad(idx_l, offs_l, flat, sids, coeff, gy, hot):
         cpos = coeff if coeff is not None else torch.ones(
             flat.shape[0], dtype=torch.float32, device=flat.device)
         return head_grad(flat[:, None], cpos[:, None], gy_rows, hot, torch.float32)
-    g = gy.index_select(0, sids.long())
-    if coeff is not None:
-        g = g * coeff[:, None]
-    tgt = torch.where(flat < hot, flat, torch.full_like(flat, hot)).long()
-    out = torch.zeros((hot + 1, gy.shape[1]), dtype=torch.float32, device=gy.device)
-    return out.index_add_(0, tgt, g)[:hot]
+    masked = torch.where(flat < hot, flat, torch.full_like(flat, SENTINEL))
+    t_idx, t_sid, t_coeff = transpose_position_ordered(sids, masked, coeff)
+    cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff)
+    nu = min(int(cg.num_unique), cg.rows.shape[0])
+    rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
+    keep = (uniq >= 0) & (uniq < hot)
+    out = torch.zeros((hot, gy.shape[1]), dtype=torch.float32, device=gy.device)
+    return out.index_copy_(0, uniq[keep].long(), rows[keep])
 
 
 def _hybrid_tail_sums(flat, sids, gy, coeff, pvalid, hot, n, rows_per, cap, nnz_l,
@@ -352,8 +358,8 @@ def sharded_hybrid_sgd_sparse_update(
 
     The update mirror of :func:`hybrid_tiered_lookup`. Head hits (row <
     ``hot``) never touch the wire: each rank computes its batch's head
-    gradient (:func:`~cuembed_tpu_torch.ops.head.head_grad`, or a
-    scatter-add for a large head), an all-reduce over the axis makes it the
+    gradient (:func:`~cuembed_tpu_torch.ops.head.head_grad`, or K3's
+    per-row sums for a large head), an all-reduce over the axis makes it the
     global head gradient, and the replicated head updates densely (zero
     rows update by zero: the row-sparse semantics). Only cold-tail (row,
     gradient row) pairs are routed to their owner.

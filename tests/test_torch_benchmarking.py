@@ -84,3 +84,101 @@ def test_backward_bound_at_the_flagship_batch():
     weighted = benchmarking.backward_bound(compressed=False, **{**kw, "weighted": True})
     assert weighted["bytes"] == full["bytes"] + 4 * 4_194_304
     assert weighted["flops"] == 2 * full["flops"] == 2 * 4_194_304 * 256
+
+
+# -- measurement hygiene: the cases of tests/test_sweep_emitter.py:33-100, each
+# run on the port's function and on the JAX package's -------------------------
+
+def _hygiene():
+    from cuembed_tpu.utils import benchmarking as jb
+
+    return (benchmarking, jb)
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_slope_stats_degenerate_flag(which):
+    b = _hygiene()[which == "jax"]
+    assert b.DEGENERATE_SLOPE_S == jax_bench.DEGENERATE_SLOPE_S
+    assert not b._slope_stats(1e-3, 1.2e-3, 2e-3)["degenerate"]
+    assert b._slope_stats(b.DEGENERATE_SLOPE_S, 1.2e-3, 2e-3)["degenerate"]
+    assert b._slope_stats(1e-3, b.DEGENERATE_SLOPE_S, 2e-3)["degenerate"]
+    assert benchmarking._slope_stats(1e-3, 2e-3, 3e-3) == jax_bench._slope_stats(
+        1e-3, 2e-3, 3e-3)
+
+
+@pytest.mark.parametrize("peak", [3350.0, 2000.0])
+def test_plausible_floor(peak):
+    floor = benchmarking.plausible_floor_s(262144, peak)
+    assert floor == jax_bench.plausible_floor_s(262144, peak)
+    assert floor == 262144 / (1.25 * peak * 1e9)
+    assert benchmarking.DEGENERATE_SLOPE_S < floor
+    assert benchmarking.plausible_floor_s(1e6, peak, safety=2.0) == \
+        jax_bench.plausible_floor_s(1e6, peak, safety=2.0)
+
+
+def _stats(median, degenerate=False):
+    return {"min": median, "median": median, "max": median, "degenerate": degenerate}
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_measure_until_plausible_retries_then_accepts(which):
+    b = _hygiene()[which == "jax"]
+    seq = [_stats(1e-9, degenerate=True), _stats(5e-4)]
+    calls = []
+
+    def measure():
+        calls.append(1)
+        return seq[min(len(calls) - 1, len(seq) - 1)]
+
+    st = b.measure_until_plausible(measure, floor_s=1e-6)
+    assert len(calls) == 2
+    assert not st["implausible"]
+    assert st["median"] == 5e-4
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_measure_until_plausible_flags_persistent_garbage(which):
+    b = _hygiene()[which == "jax"]
+    calls = []
+
+    def measure():
+        calls.append(1)
+        return _stats(1e-9, degenerate=True)
+
+    st = b.measure_until_plausible(measure, floor_s=1e-6, retries=2)
+    assert len(calls) == 3  # initial + 2 retries
+    assert st["implausible"]
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_measure_until_plausible_floor_without_degenerate(which):
+    # A non-degenerate but faster-than-light median still re-measures: 0.1 us
+    # for 1 MB of application traffic is physically impossible on an H100.
+    b = _hygiene()[which == "jax"]
+    floor = b.plausible_floor_s(1_000_000, 3350.0)
+    st = b.measure_until_plausible(lambda: _stats(1e-7), floor_s=floor)
+    assert st["implausible"]
+
+
+def test_lookups_per_sec_matches_jax():
+    args = (65536, 64, 2.25e-4)
+    assert benchmarking.lookups_per_sec(*args) == jax_bench.lookups_per_sec(*args)
+
+
+def test_hbm_peak_is_the_cards(monkeypatch):
+    """The data sheet's rate by the card's name: the H100 SXM's 3,350 GB/s,
+    which is also the default for a card the table does not know. Without a
+    card the lookup and the streaming rate raise."""
+    peak = benchmarking.detect_hbm_peak_gbps
+    assert benchmarking.H100_HBM_BYTES_PER_S == 3350.0 * 1e9
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            peak()
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            benchmarking.stream_rate_gbps()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    assert peak() == 3350.0
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "some other card")
+    assert peak() == 3350.0
+    assert peak(default=1.0) == 1.0

@@ -4,9 +4,9 @@
 Covered: the per-table tiered configs (the hot-budget split), apply (fixed,
 weighted, CSR, with the tiered configs), counts, reorder, head-hit rates,
 the sparse SGD and AdaGrad updates, the feature-level entry points on
-shared tables, the state round trip through ``torch.save``, the error of
-``plan_placement`` (the planner is not ported yet), and the sharded entry
-points on a one-rank mesh.
+shared tables, the state round trip through ``torch.save``,
+``plan_placement`` (the plan equal to JAX's on the same counts), and the
+sharded entry points on a one-rank mesh.
 
 Tolerances: integer-valued tables and gradients with lr = 0.5 keep every
 sum exact: pooled outputs and SGD tables bit for bit. AdaGrad divides by a
@@ -255,7 +255,7 @@ def test_errors_match_jax():
                               {"c": torch.zeros(8, 8)}, lr=0.1)
 
 
-P11_CALLS = ("plan_placement", "shard", "adagrad_init_sharded", "apply_sharded",
+PARALLEL_CALLS = ("plan_placement", "shard", "adagrad_init_sharded", "apply_sharded",
              "sgd_update_sharded", "adagrad_update_sharded")
 
 
@@ -274,17 +274,35 @@ def one_rank_mesh(tmp_path_factory):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name", sorted(P11_CALLS))
-def test_parallel_entry_points_wait_for_p11(name, one_rank_mesh):
-    """``plan_placement`` still waits for the placement planner (the last
-    part of P11); the sharded entry points run on the parallel layer, and on
-    one rank equal the single-device methods bit for bit (the routed sums
-    take the same rows in the same order; the multi-rank cases are in
-    tests/test_torch_multitable_sharded.py)."""
-    coll, _ = _pair()
+@pytest.mark.parametrize("name", sorted(PARALLEL_CALLS))
+def test_parallel_entry_points(name, one_rank_mesh):
+    """``plan_placement`` gives JAX's plan on the same counts (each table's
+    placement, sizes, comm estimate and head-hit rate; the cost model the
+    JAX package's, with a small replication limit); the sharded entry
+    points run on the parallel layer, and on one rank equal the
+    single-device methods bit for bit (the routed sums take the same rows
+    in the same order; the multi-rank cases are in
+    tests/test_torch_multitable_sharded.py and tests/test_torch_planner.py)."""
+    coll, jcoll = _pair()
     if name == "plan_placement":
-        with pytest.raises(NotImplementedError, match="planner"):
-            coll.plan_placement(4, batch=64)
+        from cuembed_tpu.parallel import CostModel as JCost
+        from cuembed_tpu_torch.parallel import CostModel
+
+        rng = np.random.default_rng(6)
+        seen = {"ads": np.minimum(rng.zipf(1.3, 20_000) - 1, 499),
+                "user": rng.integers(0, 300, 20_000)}
+        fields = dataclasses.asdict(JCost(replicate_bytes_max=16 * 1024))
+        kw = dict(batch=64, hot_bytes_total=64 * 1024)
+        got = coll.plan_placement(4, counts=coll.update_counts(coll.init_counts(), seen),
+                                  cost=CostModel(**fields), **kw)
+        want = jcoll.plan_placement(4, counts=jcoll.update_counts(jcoll.init_counts(), seen),
+                                    cost=JCost(**fields), **kw)
+        assert got.summary() == want.summary()
+        assert (got.n_shards, got.bytes_per_device, got.budget_bytes) == (
+            want.n_shards, want.bytes_per_device, want.budget_bytes)
+        for k, tp in got.tables.items():
+            assert dataclasses.asdict(tp) == dataclasses.asdict(want.tables[k])
+        assert got.tables["ads"].placement == "row_sharded"
         return
     rng = np.random.default_rng(5)
     mesh = one_rank_mesh

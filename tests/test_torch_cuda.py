@@ -806,3 +806,116 @@ def test_one_rank_nccl_sharded_lookup_and_update(gen, tmp_path):
         torch.testing.assert_close(a1, a2, rtol=1e-5, atol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+def test_stream_rate_and_event_stats(gen):
+    """The streaming-reduce rate is a card's (above a tenth of the data
+    sheet's peak, below 1.25 times it), and the event timer's statistics
+    are ordered and not degenerate."""
+    from cuembed_tpu_torch.utils import benchmarking as bench
+
+    peak = bench.detect_hbm_peak_gbps()
+    rate = bench.stream_rate_gbps(256)
+    assert 0.1 * peak < rate < 1.25 * peak
+    x = torch.randn(1 << 24, device="cuda", generator=gen)
+    st = bench.cuda_time_ms(lambda: x.sum(), warmup=1, iters=5, return_stats=True)
+    assert 0 < st["min"] <= st["median"] <= st["max"] and not st["degenerate"]
+    floor = bench.plausible_floor_s(x.numel() * 4, peak)
+    assert not bench.measure_until_plausible(
+        lambda: bench.cuda_time_ms(lambda: x.sum(), warmup=1, iters=5, return_stats=True),
+        floor)["implausible"]
+
+
+PLANNED_V, PLANNED_W, PLANNED_B, PLANNED_H = 3000, 64, 256, 8
+
+
+def _planned_problem():
+    g = torch.Generator().manual_seed(1)
+    return (torch.randn((PLANNED_V, PLANNED_W), generator=g),
+            torch.randint(0, PLANNED_V, (PLANNED_B, PLANNED_H), generator=g),
+            torch.randn((PLANNED_B, PLANNED_W), generator=g))
+
+
+def replicated_ranks(rank, world, tmp):
+    """A rank of the replicated planned updates on cuda:0 over gloo."""
+    from cuembed_tpu_torch.parallel import (CostModel, apply_plan, local_block, make_mesh,
+                                            plan, planned_adagrad_init,
+                                            planned_adagrad_update, planned_sgd_update)
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(n_model=world)
+    cfg = tce.TableConfig("t", PLANNED_V, PLANNED_W, hotness=PLANNED_H)
+    p = plan([cfg], world, batch=PLANNED_B,
+             cost=CostModel(replicate_bytes_max=PLANNED_V * 128 * 4))
+    table, idx, gy = (x.cuda() for x in _planned_problem())
+    ib, gb = ({"t": local_block(x, mesh, ("model", None))} for x in (idx, gy))
+    placed = apply_plan(p, {"t": table}, mesh)
+    n3 = cuda_backward.embedding_backward_cuda_compressed.launches
+    sgd = planned_sgd_update(p, {"t": placed["t"].clone()}, ib, gb, mesh=mesh, lr=0.1)["t"]
+    t, a = planned_adagrad_update(p, placed, planned_adagrad_init(p, placed, mesh), ib, gb,
+                                  mesh=mesh, lr=0.1)
+    torch.cuda.synchronize()
+    return {"placement": p.tables["t"].placement, "sgd": sgd.cpu(), "adagrad": t["t"].cpu(),
+            "acc": a["t"].cpu(),
+            "k3": cuda_backward.embedding_backward_cuda_compressed.launches - n3}
+
+
+def test_replicated_planned_updates_are_bitwise_on_every_rank(gen, tmp_path):
+    """Two ranks on the card over gloo: a replicated table's planned SGD and
+    AdaGrad updates (the batch all-gathered, then K3 compressed on every
+    rank) leave the replicas equal bit for bit, and equal to the one-card
+    update of the whole batch on K3 (the same inputs in the same order)."""
+    from pathlib import Path
+
+    from torch_dist import run_ranks
+
+    from cuembed_tpu_torch import train
+
+    out = run_ranks(Path(__file__), "replicated_ranks", 2, tmp_path, timeout=240.0)
+    assert all(r["placement"] == "replicated" and r["k3"] == 2 for r in out)
+    for key in ("sgd", "adagrad", "acc"):
+        assert torch.equal(out[0][key], out[1][key]), key
+    table, idx, gy = (x.cuda() for x in _planned_problem())
+    want = train.sgd_sparse_update(table.clone(), idx, gy, lr=0.1)
+    want_t, want_a = train.rowwise_adagrad_sparse_update(
+        table.clone(), torch.zeros(PLANNED_V, device="cuda"), idx, gy, lr=0.1)
+    assert torch.equal(out[0]["sgd"], want.cpu())
+    assert torch.equal(out[0]["adagrad"], want_t.cpu())
+    assert torch.equal(out[0]["acc"], want_a.cpu())
+
+
+HYBRID_HOT, HYBRID_ROWS = 20_000, 60_000  # a head past HEAD_GRAD_MXU_MAX_ROWS
+
+
+def hybrid_ranks(rank, world, tmp):
+    """A rank of a (data, model) = (2, 1) mesh on cuda:0 over gloo: one
+    hybrid AdaGrad update of the same batch on both data replicas."""
+    from cuembed_tpu_torch.parallel import (local_block, make_mesh,
+                                            sharded_hybrid_rowwise_adagrad_sparse_update,
+                                            split_hybrid_table)
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(n_model=1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn((HYBRID_ROWS, 64), device="cuda", generator=g)
+    idx = torch.randint(0, HYBRID_HOT, (4096, 8), device="cuda", generator=g)
+    gy = torch.randn((4096, 64), device="cuda", generator=g)
+    head, tail = split_hybrid_table(table, HYBRID_HOT, 1)
+    head, tail = head.clone(), local_block(tail, mesh, ("model", None)).clone()
+    hacc, tacc = torch.zeros(HYBRID_HOT, device="cuda"), torch.zeros(tail.shape[0], device="cuda")
+    sharded_hybrid_rowwise_adagrad_sparse_update(head, tail, hacc, tacc, idx, gy, mesh=mesh,
+                                                 lr=0.1)
+    return head.cpu(), hacc.cpu()
+
+
+def test_hybrid_head_replicas_are_bitwise_along_data(gen, tmp_path):
+    """The hybrid head's replicas along the data axis all-reduce over the
+    model axis only, so each sums its batch's head gradient itself: a head
+    past HEAD_GRAD_MXU_MAX_ROWS is summed on K3 (deterministic), and the two
+    replicas agree bit for bit (a scatter-add by atomics did not)."""
+    from pathlib import Path
+
+    from torch_dist import run_ranks
+
+    out = run_ranks(Path(__file__), "hybrid_ranks", 2, tmp_path, timeout=240.0)
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])

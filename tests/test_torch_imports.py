@@ -69,3 +69,14 @@ def test_scan_sees_the_parallel_layer():
         assert f"cuembed_tpu_torch/{module}" in names
     assert "examples/train_dlrm_sharded_torch.py" in names
     assert "examples/train_dlrm_sharded.py" not in names
+
+
+def test_scan_sees_the_planner_and_the_rest():
+    """The planner, the golden models, the allocation and the planner's
+    example are scanned, and the JAX example is not."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("parallel/planner.py", "ref/__init__.py", "ref/forward.py",
+                   "ref/backward.py", "ref/transforms.py", "utils/allocation.py"):
+        assert f"cuembed_tpu_torch/{module}" in names
+    assert "examples/plan_and_train_torch.py" in names
+    assert "examples/plan_and_train.py" not in names

@@ -14,7 +14,7 @@ the CPU mesh).
 
 Covered: SUM, MEAN and weighted SUM, sharded CSR (flat CSR for the column
 layout), the overflow fallback (every id on one owner under a small
-capacity), repeated AdaGrad steps, a bf16 table, the hybrid head's scatter
+capacity), repeated AdaGrad steps, a bf16 table, the hybrid head's K3
 path (a head past ``HEAD_GRAD_MXU_MAX_ROWS``), and run-to-run determinism.
 
 Tolerances: integer-valued tables and gradients with lr = 0.5 keep every
