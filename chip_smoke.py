@@ -134,7 +134,19 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    placement of each mix on one card of a (2, 4) mesh (lookup and AdaGrad
    update timed, plus the plan's comm bytes over the data sheet's NVLink
    rate) against ``plan()``'s pick, and the sweeps the defaults come from.
-11. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
+11. The chip record and the chained timers: the record ``chip_constants()``
+   resolved (path and device kind; on an H100 the v5e fallback fails the
+   run), ``python -m cuembed_tpu_torch.utils.calibrate_chip --quick``'s
+   record and derived constants beside the committed record's, and config
+   2's flagship request (K1 through ``embedding_lookup``) and config 1's
+   ``EmbeddingBag`` request each timed three ways: ``cuda_time_ms`` (L2
+   flushed), ``fori_chain_time`` (the step captured as a CUDA graph chain)
+   and ``chain_time`` (the host clock), the gap between the last two the
+   host's time per call. A timing harness, not a main path: its K1 wrapper
+   calls (the graph captures included; a replay re-launches the captured
+   kernels uncounted) are printed on their own line and stay out of the
+   ``kernels`` line, whose counts are the counted main-path phases'.
+12. The ``kernels`` JSON line, ``nvidia-smi``'s line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, without a CUDA device or outside a
@@ -150,7 +162,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -179,6 +190,7 @@ from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
 from cuembed_tpu_torch.ops.transforms import transpose, transpose_position_ordered
 from cuembed_tpu_torch.parallel.sharding import assemble
 from cuembed_tpu_torch.utils import benchmarking as bench
+from cuembed_tpu_torch.utils import calibrate_chip, chip
 from cuembed_tpu_torch.types import init_table_
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
 
@@ -235,11 +247,7 @@ ADAGRAD_LR, SGD_LR = 0.01, 1e-4
 DENSE_STEPS, ADAGRAD_STEPS = 3, 3
 
 
-def nvidia_smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+nvidia_smi_line = calibrate_chip.nvidia_smi_line
 
 
 def ulp(x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -3294,6 +3302,85 @@ def phase_planner(seed):
     return launches, max(e1, e1_b, e1_one), e2, max(e3, e3_b, e3_one)
 
 
+def request_step(lookup):
+    """A chained step of one request: the ids bumped by the carry, the
+    lookup, and its sum-of-squares probe carried on."""
+    def step(carry, ids):
+        i, dep = carry
+        return (i + 1, bench.carry_probe(lookup(ids + bench.bump_from(dep))))
+    return step
+
+
+def phase_chip_record(seed, idx, small_batch):
+    """The chip record the port resolved, a quick calibration beside the
+    committed record, and the flagship and config-1 requests timed three
+    ways. A timing harness, not a main path: its wrapper calls (graph
+    captures among them, whose replays add none) are printed on their own
+    line and kept out of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    consts = chip.chip_constants()
+    path = chip.record_path()
+    print(f"[chip record] resolved {path or 'no record'}: device_kind "
+          f"{consts['device_kind']!r}, {json.dumps(consts)}")
+    if "h100" in chip.device_kind() and consts == chip.V5E_DEFAULTS:
+        raise SystemExit("[chip record] an H100 resolved the v5e fallback")
+    zero_counts()
+    quick = calibrate_chip.measure(quick=True, log=lambda m: print(f"[chip record quick] {m}"))
+    derived = chip.derive_chip_constants(quick)
+    print(f"[chip record quick] record {json.dumps(quick)}")
+    if path:
+        with open(path) as f:
+            print(f"[chip record committed] record {json.dumps(json.load(f))}")
+    for name, c in (("quick", derived), ("committed", consts)):
+        print(f"[chip record {name}] " + ", ".join(
+            f"{k} {c[k]}" for k in ("hot_bytes", "vmem_table_bytes", "narrow_inline_pack_bytes",
+                                    "tiering_min_hotness", "tiering_min_positions")))
+    t1 = time.perf_counter()
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    table = torch.empty((NUM_ROWS, WIDTH), dtype=torch.float16, device="cuda")
+    init_table_(table, gen)
+    small = tce.EmbeddingBag(SMALL_ROWS, SMALL_WIDTH, dtype=torch.float32)
+    small.reset_parameters(generator=gen)
+    dev = idx.device
+    x0 = (torch.zeros((), dtype=torch.int32, device=dev),
+          torch.zeros((), dtype=torch.float32, device=dev))
+    with torch.no_grad():
+        for name, request, ids, fk, hk in (
+            ("config 2 flagship K1 request", lambda i: tce.embedding_lookup(table, i), idx,
+             (4, 16), (2, 10)),
+            ("config 1 EmbeddingBag request", small, small_batch, (32, 512), (10, 100)),
+        ):
+            step = request_step(request)
+            dev_ms = bench.cuda_time_ms(lambda: request(ids))
+            step_ms = bench.cuda_time_ms(lambda: step(x0, ids))
+            fori = bench.fori_chain_time(step, x0, operands=(ids,), k_lo=fk[0], k_hi=fk[1],
+                                         return_stats=True)
+            host = bench.chain_time(lambda c: step(c, ids), x0, k_lo=hk[0], k_hi=hk[1],
+                                    repeats=5, return_stats=True)
+            print(f"[timers, {name}] cuda_time_ms (L2 flushed): the request "
+                  f"{dev_ms:.4f} ms, the chained step (bump, request, probe) {step_ms:.4f} ms")
+            print(f"[timers, {name}] fori_chain_time (CUDA graph chain, k {fk[0]}..{fk[1]}): "
+                  f"min {fori['min'] * 1e3:.4f} ms, median {fori['median'] * 1e3:.4f} ms a step")
+            print(f"[timers, {name}] chain_time (host clock, k {hk[0]}..{hk[1]}): min "
+                  f"{host['min'] * 1e3:.4f} ms, median {host['median'] * 1e3:.4f} ms a step; "
+                  f"the host's share a call (median): "
+                  f"{(host['median'] - fori['median']) * 1e3:.4f} ms, "
+                  f"{1 - fori['median'] / host['median']:.1%}")
+            if fori["degenerate"] or host["degenerate"]:
+                raise SystemExit(f"[timers, {name}] a degenerate chained time")
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if not got[0] or any(got[1:]):
+        raise SystemExit(f"[chip record] wrapper calls (K1, K2, K3 full, K3 compressed) "
+                         f"{got}; expected K1 only")
+    print(f"[chip record] wrapper calls and graph captures, not launches (K1, K2, K3 full, "
+          f"K3 compressed): {got}; calibration {t1 - t0:.1f} s, timers "
+          f"{time.perf_counter() - t1:.1f} s")
+    del table, small
+    torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3508,6 +3595,11 @@ def main():
     errs["K1"] = max(errs["K1"], e1_planner)
     errs["K2"] = max(errs["K2"], e2_planner)
     errs["K3"] = max(errs["K3"], e3_planner)
+
+    # 11. The chip record, a quick calibration and the chained timers.
+    t12 = time.perf_counter()
+    phase_chip_record(args.seed, idx, small_batches[0])
+    print(f"[chip record] phase {time.perf_counter() - t12:.1f} s")
 
     # Launches of every counted run, (K1, K2, K3 full, K3 compressed).
     total = (launches + p7_launches + train_launches + p7_train + p8_table + p8_fused

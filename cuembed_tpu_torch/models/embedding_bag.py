@@ -23,6 +23,7 @@ from torch import nn
 
 from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
 from cuembed_tpu_torch.ops.narrow import (
+    LANES,
     narrow_lookup,
     pack_narrow,
     packing_factor,
@@ -36,7 +37,7 @@ from cuembed_tpu_torch.types import (
     init_table_,
 )
 
-__all__ = ["EmbeddingBag", "default_device"]
+__all__ = ["EmbeddingBag", "LANES", "default_device"]
 
 _TORCH_MODES = {"sum": CombineMode.SUM, "mean": CombineMode.MEAN}
 
@@ -84,6 +85,13 @@ class EmbeddingBag(nn.Module):
     @property
     def _packed(self) -> bool:
         return self.layout == "packed" and packing_factor(self.width) > 1
+
+    @property
+    def stored_width(self) -> int:
+        """The width of a stored logical row: ``width`` in every layout.
+        The JAX package pads ``"padded"`` rows to a multiple of ``LANES``
+        for the TPU's tile; the port pads nothing."""
+        return self.width
 
     @property
     def stored_shape(self) -> tuple[int, int]:

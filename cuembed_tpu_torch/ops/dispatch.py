@@ -14,10 +14,11 @@ The JAX backend names carry over so that callers do not change:
 
 The ``ValueError`` of each refused call follows the JAX dispatcher:
 ``"narrow"`` refuses a width that does not pack, and ``"tiered"`` refuses a
-raw narrow table too large to pack inline (the JAX package's layout bound,
-:data:`NARROW_INLINE_PACK_BYTES`), CONCAT, and a table its automatic config
-would not tier. The JAX dispatcher line-packs a small raw narrow table for
-the call, because TPU arrays are padded to 128 lanes; on the card that
+raw narrow table too large to pack inline (the active record's
+``narrow_inline_pack_bytes``, :func:`_narrow_inline_pack_bytes`), CONCAT,
+and a table its automatic config would not tier. The JAX dispatcher
+line-packs a small raw narrow table for the call, because TPU arrays are
+padded to 128 lanes; on the card that
 repack would change no result, so a raw narrow table goes straight to K1
 and K2 under every backend (packed storage is
 :func:`~cuembed_tpu_torch.ops.narrow.narrow_lookup` and
@@ -43,20 +44,33 @@ from cuembed_tpu_torch.ops.lookup_torch import (
     embedding_backward_torch,
     embedding_forward_torch,
 )
+from cuembed_tpu_torch.ops.narrow import LANES
 from cuembed_tpu_torch.ops.tiered import TieredConfig, auto_config, tiered_forward
 from cuembed_tpu_torch.types import CombineMode
+from cuembed_tpu_torch.utils.chip import chip_constants
 
 BACKENDS = ("auto", "pallas", "xla", "tiered", "narrow")
 
-# The JAX package's bound (its layout default) on the lane-padded bytes of a
-# raw narrow table that it packs inline for one call; "tiered" refuses a
-# larger one, as the JAX dispatcher does.
-NARROW_INLINE_PACK_BYTES = 8 * 1024 * 1024
+
+def _narrow_inline_pack_bytes() -> int:
+    """The active record's bound on the lane-padded bytes of a raw narrow
+    table that the JAX package packs inline for one call; ``"tiered"``
+    refuses a larger table, as the JAX dispatcher does."""
+    return chip_constants()["narrow_inline_pack_bytes"]
 
 
 def _check_backend(backend):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend}")
+
+
+def pallas_forward_supported(table, indices, offsets, weights, mode) -> bool:
+    """Whether K1 or K2 serves the call: every mode but CONCAT (a pure
+    gather, ``index_select``), at every width and storage dtype. The JAX
+    package's Pallas forward also refuses widths that are no multiple of
+    128 lanes and fp16 tables; the kernels here take both."""
+    del table, indices, offsets, weights
+    return mode != CombineMode.CONCAT
 
 
 def tiered_auto_config(table, indices, offsets, mode) -> TieredConfig | None:
@@ -85,8 +99,8 @@ def forward(
     """Route a forward lookup to the kernel or the plain version."""
     _check_backend(backend)
     if narrow_mod.packing_factor(table.shape[1]) > 1:
-        phys_bytes = table.shape[0] * narrow_mod.LANES * table.element_size()
-        if backend == "tiered" and phys_bytes > NARROW_INLINE_PACK_BYTES:
+        phys_bytes = table.shape[0] * LANES * table.element_size()
+        if backend == "tiered" and phys_bytes > _narrow_inline_pack_bytes():
             raise ValueError(
                 "backend='tiered' on a raw narrow table would repack it "
                 "every call; store it line-packed (pack_narrow) and call "

@@ -9,8 +9,10 @@ the port keeps the engine's API and its results and not its mechanism:
 
 * :class:`TieredConfig`, :func:`auto_config`, :func:`csr_combine_config`
   and :func:`tiering_profitable` compute the same configurations and the
-  same decisions as the JAX package, from the same numbers, so that a
-  configuration made in one package means the same in the other.
+  same decisions as the JAX package, from the same numbers: the active chip
+  record (:func:`~cuembed_tpu_torch.utils.chip.chip_constants`), read where
+  the JAX package reads its own, so that a configuration made in one
+  package means the same in the other under any record.
 * :func:`tiered_forward` keeps its signature and its errors and serves the
   whole table through K1 (fixed hotness) or K2 (CSR) for CUDA tensors, and
   through the plain PyTorch version for CPU tensors. Its only lossy option,
@@ -32,16 +34,14 @@ import torch
 from cuembed_tpu_torch.ops import cuda_forward
 from cuembed_tpu_torch.ops.transforms import extract_row_ids_from_csr
 from cuembed_tpu_torch.types import CombineMode, accumulation_dtype
+from cuembed_tpu_torch.utils.chip import V5E_DEFAULTS, chip_constants
 
-# The JAX package's layout defaults (its built-in chip constants, which it
-# uses wherever no measured record applies), kept as plain numbers so that
-# the same call gives the same TieredConfig in both packages. They describe
-# the TPU layout a configuration was sized for, not this card: the port
-# serves every configuration through K1, K2 and K3 on the whole table.
-DEFAULT_HOT_BYTES = 108 * 1024 * 1024
-VMEM_TABLE_BYTES = 108 * 1024 * 1024
-TIERING_MIN_HOTNESS = 4
-TIERING_MIN_POSITIONS = 32768
+# The JAX package's fallback budget (its built-in v5e record), as it keeps
+# it: the default of the callers that size a layout themselves (tables,
+# collections, the planner). The active values come from chip_constants().
+# A budget sizes a configuration and changes no result: the port serves
+# every configuration through K1, K2 and K3 on the whole table.
+DEFAULT_HOT_BYTES = V5E_DEFAULTS["hot_bytes"]
 
 
 @dataclass(frozen=True)
@@ -80,10 +80,13 @@ class TieredConfig:
 
 def tiering_profitable(positions: int, avg_hotness: float) -> bool:
     """The JAX package's batch-shape gate for its tiered engine: at least
-    ``TIERING_MIN_HOTNESS`` positions a sample and ``TIERING_MIN_POSITIONS``
-    in all. Callers use it as the JAX package does; here it picks between
-    two routes to the same kernels, so it changes no result."""
-    return avg_hotness >= TIERING_MIN_HOTNESS and positions >= TIERING_MIN_POSITIONS
+    the active record's ``tiering_min_hotness`` positions a sample and
+    ``tiering_min_positions`` in all. Callers use it as the JAX package
+    does; here it picks between two routes to the same kernels, so it
+    changes no result."""
+    c = chip_constants()
+    return (avg_hotness >= c["tiering_min_hotness"]
+            and positions >= c["tiering_min_positions"])
 
 
 def _capacity(chunk_elems: int, p: float) -> int:
@@ -107,12 +110,12 @@ def auto_config(
 ) -> TieredConfig | None:
     """The JAX package's tiered config for a table and hotness, or None
     when its whole table would fit the hot budget (same arithmetic;
-    ``hot_bytes`` and ``vmem_table_bytes`` default to the layout defaults
-    above)."""
+    ``hot_bytes`` and ``vmem_table_bytes`` default to the active record's,
+    :func:`~cuembed_tpu_torch.utils.chip.chip_constants`)."""
     if hot_bytes is None:
-        hot_bytes = DEFAULT_HOT_BYTES
+        hot_bytes = chip_constants()["hot_bytes"]
     if vmem_table_bytes is None:
-        vmem_table_bytes = VMEM_TABLE_BYTES
+        vmem_table_bytes = chip_constants()["vmem_table_bytes"]
     table_bytes = num_categories * width * itemsize
     if table_bytes <= vmem_table_bytes:
         return None

@@ -11,6 +11,7 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -80,6 +81,27 @@ def check_index_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype not in INDEX_DTYPES:
         raise ValueError(f"unsupported index dtype: {dtype}")
     return dtype
+
+
+def canonical_index_dtype(indices, num_categories: int | None = None) -> torch.dtype:
+    """The dtype lookups run in for ``indices`` (a tensor, an array, or a
+    torch or numpy dtype or its name): int32 stays int32 and int64 stays
+    int64, since the kernels take both. The JAX package narrows int64 to
+    int32 for tables under 2**31 rows, its TPU being 32-bit-native;
+    ``num_categories`` is taken for that signature and changes nothing
+    here."""
+    del num_categories
+    if isinstance(indices, (torch.dtype, torch.Tensor)):
+        dt = getattr(indices, "dtype", indices)
+    else:
+        try:
+            dt = np.dtype(indices)  # dtype-like: np.int32, "int64"
+        except TypeError:
+            dt = np.dtype(indices.dtype)  # array-like
+        dt = {np.int32: torch.int32, np.int64: torch.int64}.get(dt.type, dt)
+    if dt not in INDEX_DTYPES:
+        raise ValueError(f"unsupported index dtype: {dt}")
+    return dt
 
 
 @dataclass(frozen=True)

@@ -45,6 +45,7 @@ from cuembed_tpu_torch.parallel import (
     shard_csr,
     split_hybrid_table,
 )
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 WORLD = 4
 FLAT, GRID = (1, 4), (2, 2)  # (data, model) shapes

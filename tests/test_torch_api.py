@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import cuembed_tpu as jce
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch.ops import cuda_forward
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 V, W, B, H = 300, 24, 17, 5
 

@@ -16,6 +16,7 @@ from cuembed_tpu.utils import calibration as jcal
 from cuembed_tpu_torch import native as tnative
 from cuembed_tpu_torch.ops.tiered import auto_config as tauto
 from cuembed_tpu_torch.utils import calibration as tcal
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 
 def _same(got, want):

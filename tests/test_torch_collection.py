@@ -28,6 +28,7 @@ from cuembed_tpu.types import CombineMode as JMode
 
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch.collection import EmbeddingCollection, TableConfig
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 ADA_TOL = dict(rtol=1e-5, atol=1e-6)

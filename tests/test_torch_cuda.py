@@ -919,3 +919,83 @@ def test_hybrid_head_replicas_are_bitwise_along_data(gen, tmp_path):
 
     out = run_ranks(Path(__file__), "hybrid_ranks", 2, tmp_path, timeout=240.0)
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+# -- the chained timers: K1 captured as a CUDA graph -------------------------------
+
+def _capture(fn):
+    """``fn()`` warmed on a side stream, then captured as a CUDA graph;
+    returns the graph and the output it writes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    return g, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("csr", [False, True], ids=["k1", "k2"])
+def test_graph_captured_kernel_equals_eager(gen, dtype, csr):
+    """A graph-captured K1 (K2) launch equals the eager one bit for bit, and
+    a replay reads the ids written into its input since. The capture counts
+    one launch; replays count none."""
+    V, B, H, W = 5000, 300, 17, 256
+    table = torch.randn((V, W), device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(0, V, (B, H), device="cuda", generator=gen)
+    w = torch.rand((B, H), device="cuda", generator=gen)
+    offsets = torch.arange(0, B * H + 1, H, device="cuda")
+    if csr:
+        kernel = cuda_forward.embedding_forward_cuda_csr
+
+        def fn():
+            return kernel(table, idx.view(-1), offsets, w.view(-1))
+    else:
+        kernel = cuda_forward.embedding_forward_cuda
+
+        def fn():
+            return kernel(table, idx, w)
+    eager = fn()
+    before = kernel.launches
+    g, out = _capture(fn)
+    assert kernel.launches == before + 2  # the warm-up and the capture
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    idx.copy_(torch.randint(0, V, (B, H), device="cuda", generator=gen))
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(out, fn())
+
+
+def test_fori_chain_time_over_a_captured_k1_chain(gen):
+    """The flagship K1 request (10M x 256 fp16, 65536 x 64 ids) chained as a
+    CUDA graph: a positive time a step; the same slope (within 25%) over two
+    disjoint spans of chain lengths, so the chain's time grows in proportion
+    to k; and within 2x of one step's ``cuda_time_ms`` (L2 flushed there,
+    warm along the chain)."""
+    from cuembed_tpu_torch.utils import benchmarking as bench
+
+    rows = 10_000_000
+    table = torch.empty((rows, 256), dtype=torch.float16, device="cuda")
+    table.uniform_(-0.0625, 0.0625, generator=gen)
+    idx = torch.randint(0, rows, (65536, 64), device="cuda", generator=gen)
+
+    def step(carry, table, ids):
+        i, dep = carry
+        out = cuda_forward.embedding_forward_cuda(table, ids + bench.bump_from(dep))
+        return (i + 1, bench.carry_probe(out))
+
+    x0 = (torch.zeros((), dtype=torch.int32, device="cuda"),
+          torch.zeros((), dtype=torch.float32, device="cuda"))
+    short = bench.fori_chain_time(step, x0, operands=(table, idx), k_lo=2, k_hi=6)
+    long = bench.fori_chain_time(step, x0, operands=(table, idx), k_lo=8, k_hi=24)
+    one = bench.cuda_time_ms(lambda: step(x0, table, idx)) / 1e3
+    assert short > bench.DEGENERATE_SLOPE_S and long > bench.DEGENERATE_SLOPE_S
+    assert 0.8 < long / short < 1.25, (short, long)
+    assert 0.5 < long / one < 2.0, (long, one)

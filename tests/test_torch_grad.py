@@ -27,6 +27,7 @@ import cuembed_tpu as jce
 from cuembed_tpu.models.embedding_bag import EmbeddingBag as JaxBag
 
 import cuembed_tpu_torch as tce
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 V, W, B, H = 60, 16, 12, 5
 BITS = {torch.float32: 24, torch.float16: 11, torch.bfloat16: 8}

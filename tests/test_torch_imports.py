@@ -49,7 +49,8 @@ def test_scan_sees_the_port():
                    "utils/datagen.py", "utils/benchmarking.py",
                    "native/__init__.py", "utils/frequency.py", "utils/calibration.py",
                    "utils/pipeline.py", "table.py", "collection.py", "fused.py",
-                   "models/qr_embedding.py", "models/dlrm.py"):
+                   "models/qr_embedding.py", "models/dlrm.py", "utils/chip.py",
+                   "utils/calibrate_chip.py"):
         assert f"cuembed_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names and "tools/k3_sweep.py" in names
     assert "examples/train_dlrm_torch.py" in names

@@ -50,6 +50,7 @@ from cuembed_tpu_torch.parallel import (
     planned_sgd_update,
     shard_csr,
 )
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 WORLD = 8
 SHAPE = (2, 4)  # (data, model)

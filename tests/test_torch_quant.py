@@ -25,6 +25,7 @@ from cuembed_tpu.ops import tiered as jtiered
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch.ops import quant as tquant
 from cuembed_tpu_torch.ops.tiered import DEFAULT_HOT_BYTES, TieredConfig, int8_served
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 CFG = dict(hot_rows=512, chunk_elems=64, cold_slots=64, mxu_head_rows=64, mid_slots=64)

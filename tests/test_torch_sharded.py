@@ -44,6 +44,7 @@ from cuembed_tpu_torch.parallel import (
     table_sharding,
 )
 from cuembed_tpu_torch.parallel.sharding import mesh_shape
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 SHAPE = (2, 2)  # (data, model)
 WORLD = 4

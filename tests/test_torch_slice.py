@@ -16,6 +16,7 @@ from cuembed_tpu.utils import datagen as jax_datagen
 
 from cuembed_tpu_torch import CombineMode, EmbeddingBag, power_law_indices
 from cuembed_tpu_torch.utils import datagen
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 V, W, B, H = 500, 40, 64, 8
 

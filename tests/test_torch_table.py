@@ -33,6 +33,7 @@ from cuembed_tpu.types import CombineMode as JMode
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch.ops.tiered import TieredConfig
 from cuembed_tpu_torch.table import EmbeddingTable, resize_table
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 V, B, H = 600, 64, 8

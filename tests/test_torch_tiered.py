@@ -37,6 +37,8 @@ from cuembed_tpu_torch.ops import head as thead
 from cuembed_tpu_torch.ops import lookup_torch as tlt
 from cuembed_tpu_torch.ops import tiered as ttiered
 from cuembed_tpu_torch.ops.transforms import csr_to_fixed
+from cuembed_tpu_torch.utils import chip as tchip
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 SENT = 2**31 - 1
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -50,12 +52,12 @@ def jcfg(cfg):
 # -- configs ------------------------------------------------------------------
 
 def test_layout_defaults_are_the_jax_fallback():
-    """The port's constants are the JAX package's built-in fallback, and the
-    flagship call gives the numbers the JAX package gives on the CPU."""
+    """The port's constants and its fallback record are the JAX package's
+    built-in fallback, and the flagship call gives the numbers the JAX
+    package gives on the CPU (no card, no record: the fallback)."""
     assert ttiered.DEFAULT_HOT_BYTES == V5E_DEFAULTS["hot_bytes"] == 113246208
-    assert ttiered.VMEM_TABLE_BYTES == V5E_DEFAULTS["vmem_table_bytes"]
-    assert ttiered.TIERING_MIN_HOTNESS == V5E_DEFAULTS["tiering_min_hotness"]
-    assert ttiered.TIERING_MIN_POSITIONS == V5E_DEFAULTS["tiering_min_positions"]
+    assert tchip.V5E_DEFAULTS["vmem_table_bytes"] == jtiered.VMEM_TABLE_BYTES
+    assert tchip.V5E_DEFAULTS == V5E_DEFAULTS
     cfg = ttiered.auto_config(10_000_000, 256, 2, 64)
     assert (cfg.hot_rows, cfg.chunk_elems, cfg.cold_slots, cfg.mxu_head_rows,
             cfg.mid_slots, cfg.csr_chunk_samples) == (221184, 2048, 632, 256, 744, 128)

@@ -22,6 +22,7 @@ import cuembed_tpu as jce
 from cuembed_tpu import train as jtrain
 
 import cuembed_tpu_torch as tce
+from torch_chip_pin import one_chip_record  # noqa: F401 (autouse)
 
 V, W, B, H = 80, 8, 12, 4
 CASES = [("fixed", "sum"), ("fixed", "mean"), ("csr", "sum"), ("fixed", "concat")]
