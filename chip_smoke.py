@@ -190,7 +190,7 @@ from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch as plain
 from cuembed_tpu_torch.ops.transforms import transpose, transpose_position_ordered
 from cuembed_tpu_torch.parallel.sharding import assemble
 from cuembed_tpu_torch.utils import benchmarking as bench
-from cuembed_tpu_torch.utils import calibrate_chip, chip
+from cuembed_tpu_torch.utils import calibrate_chip, chip, trace
 from cuembed_tpu_torch.types import init_table_
 from cuembed_tpu_torch.utils.datagen import PowerLawGenerator
 
@@ -335,19 +335,21 @@ def plain_path_forbidden(*modules):
             setattr(m, n, fn)
 
 
-COUNTED = (cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr,
-           cuda_backward.embedding_backward_cuda,
-           cuda_backward.embedding_backward_cuda_compressed)
+COUNTED = ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed")
+_counted_from = trace.counters()
 
 
 def zero_counts():
-    for k in COUNTED:
-        k.launches = 0
+    """Count launches from here on (a snapshot of ``trace.counters()``)."""
+    global _counted_from
+    _counted_from = trace.counters()
 
 
 def launch_counts() -> tuple:
-    """The launch counts of K1, K2, K3 full and K3 compressed, in that order."""
-    return tuple(k.launches for k in COUNTED)
+    """The launches of K1, K2, K3 full and K3 compressed since
+    :func:`zero_counts`, in that order."""
+    now = trace.counters()
+    return tuple(now[k] - _counted_from[k] for k in COUNTED)
 
 
 @contextlib.contextmanager
@@ -1424,21 +1426,17 @@ def step_timings(bag, idx, steps=5):
 
 @contextlib.contextmanager
 def k1_tables(seen):
-    """Record the data pointer of every table K1's wrapper is handed. The
-    wrapper counts its launches on the module's name, the spy here, and
-    the count goes back to the wrapper after."""
+    """Record the data pointer of every table K1's wrapper is handed."""
     real = cuda_forward.embedding_forward_cuda
 
     def spy(table, *args, **kwargs):
         seen.append(table.data_ptr())
         return real(table, *args, **kwargs)
-    spy.launches = real.launches
     cuda_forward.embedding_forward_cuda = spy
     try:
         yield
     finally:
         cuda_forward.embedding_forward_cuda = real
-        real.launches = spy.launches
 
 
 def int8_positions(ids, cfg, q_rows):

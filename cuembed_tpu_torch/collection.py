@@ -44,6 +44,7 @@ from cuembed_tpu_torch.train import (
 )
 from cuembed_tpu_torch.types import CombineMode, default_device, init_table_
 from cuembed_tpu_torch.utils import frequency as freq
+from cuembed_tpu_torch.utils import trace
 
 # The TPU lane width the JAX package pads rows to; head_hit_rates sizes the
 # hot heads with it, as the placement planner reads them.
@@ -272,13 +273,19 @@ class EmbeddingCollection:
         ``tiered=True`` passes each table's tiered config
         (``backend="tiered"``): the same results, on the same kernels.
         """
-        return {
-            name: self._lookup(name, tables[name], idx,
-                               weights.get(name) if weights else None,
-                               offsets.get(name) if offsets else None,
-                               backend, tiered)
-            for name, idx in indices.items()
-        }
+        span = (trace.begin("collection.apply")
+                if trace.torch_profiler._is_profiler_enabled else None)
+        try:
+            return {
+                name: self._lookup(name, tables[name], idx,
+                                   weights.get(name) if weights else None,
+                                   offsets.get(name) if offsets else None,
+                                   backend, tiered)
+                for name, idx in indices.items()
+            }
+        finally:
+            if span is not None:
+                trace.end(span)
 
     # -- feature-level entry points (shared tables) ---------------------------
     def apply_features(
@@ -461,20 +468,21 @@ class EmbeddingCollection:
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Row-wise AdaGrad on every table in ``grads_y``, in place."""
         new_t, new_a = dict(tables), dict(accums)
-        for name, gy in grads_y.items():
-            c = self.configs[name]
-            new_t[name], new_a[name] = rowwise_adagrad_sparse_update(
-                tables[name],
-                accums[name],
-                indices[name],
-                gy,
-                lr=lr,
-                eps=eps,
-                offsets=offsets.get(name) if offsets else None,
-                weights=weights.get(name) if weights else None,
-                mode=c.mode,
-                tiered_cfg=self.tiered[name] if tiered else None,
-            )
+        with trace.span("collection.adagrad_update"):
+            for name, gy in grads_y.items():
+                c = self.configs[name]
+                new_t[name], new_a[name] = rowwise_adagrad_sparse_update(
+                    tables[name],
+                    accums[name],
+                    indices[name],
+                    gy,
+                    lr=lr,
+                    eps=eps,
+                    offsets=offsets.get(name) if offsets else None,
+                    weights=weights.get(name) if weights else None,
+                    mode=c.mode,
+                    tiered_cfg=self.tiered[name] if tiered else None,
+                )
         return new_t, new_a
 
     # -- multi-device (row-sharded tables over a mesh axis) --------------------

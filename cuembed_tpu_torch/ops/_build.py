@@ -23,6 +23,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from cuembed_tpu_torch.utils import trace
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -79,10 +81,19 @@ def _run(cmd):
 
 
 def build() -> Path:
-    """Compile the library unless it is already built; return its path."""
+    """Compile the library unless it is already built; return its path. A
+    compile is counted (``trace.counters()``'s ``build``) and, while a
+    profiler records, spanned (``cuembed::build``)."""
     path = library_path()
     if path.exists():
         return path
+    trace.COUNTS["build"] += 1
+    with trace.span("build"):
+        _compile(path)
+    return path
+
+
+def _compile(path: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
@@ -103,7 +114,6 @@ def build() -> Path:
         )
         # Atomic: concurrent builds each rename a complete library into place.
         os.replace(tmp, path)
-    return path
 
 
 @functools.cache

@@ -26,6 +26,7 @@ from cuembed_tpu_torch.ops.transforms import (
     transpose_position_ordered,
 )
 from cuembed_tpu_torch.types import CombineMode, accumulation_dtype, check_index_dtype
+from cuembed_tpu_torch.utils import trace
 
 
 def embedding_lookup(
@@ -60,10 +61,16 @@ def embedding_lookup(
     Returns:
       ``[batch, width]`` (SUM/MEAN) or ``[batch * hotness, width]`` (CONCAT).
     """
-    indices = _prepare_indices(indices, remap)
-    _validate(table, indices, None, weights, mode)
-    return _lookup(table, indices, None, weights, mode, low_precision_math,
-                   backend, tiered_cfg)
+    span = (trace.begin("api.lookup")
+            if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        indices = _prepare_indices(indices, remap)
+        _validate(table, indices, None, weights, mode)
+        return _lookup(table, indices, None, weights, mode, low_precision_math,
+                       backend, tiered_cfg)
+    finally:
+        if span is not None:
+            trace.end(span)
 
 
 def embedding_lookup_csr(
@@ -84,11 +91,17 @@ def embedding_lookup_csr(
     are padding and ignored), ``offsets`` is ``[batch + 1]``. CONCAT is not
     supported with CSR. ``remap`` as in :func:`embedding_lookup`.
     """
-    indices = _prepare_indices(indices, remap)
-    _validate(table, indices, offsets, weights, mode)
-    check_index_dtype(offsets.dtype)
-    return _lookup(table, indices, offsets, weights, mode, low_precision_math,
-                   backend, tiered_cfg)
+    span = (trace.begin("api.lookup")
+            if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        indices = _prepare_indices(indices, remap)
+        _validate(table, indices, offsets, weights, mode)
+        check_index_dtype(offsets.dtype)
+        return _lookup(table, indices, offsets, weights, mode, low_precision_math,
+                       backend, tiered_cfg)
+    finally:
+        if span is not None:
+            trace.end(span)
 
 
 def _prepare_indices(indices, remap):

@@ -10,8 +10,10 @@ of ``cuembed_tpu/ops/pallas_backward.py``.
 Each wrapper checks its inputs, then computes with the plain PyTorch version
 (:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU, and
 launches K3 for tensors on a CUDA device, on the current stream. A kernel
-that fails to build or launch raises; nothing falls back. Each wrapper's
-``launches`` attribute counts its launches of K3.
+that fails to build or launch raises; nothing falls back. Each launch is
+counted (``trace.counters()``'s ``launch.k3_full``,
+``launch.k3_compressed``) and, while a profiler records, spanned
+(``cuembed::launch.k3``).
 
 K3 sums each run in fp32 in position order, and the output rounds once to
 ``grad_y``'s dtype; the plain version adds position by position in
@@ -36,6 +38,7 @@ from cuembed_tpu_torch.ops.lookup_torch import (
     embedding_backward_torch,
 )
 from cuembed_tpu_torch.types import INDEX_DTYPES, STORAGE_DTYPES
+from cuembed_tpu_torch.utils import trace
 
 # Sorted positions per tile: one block stages a tile's COO in shared memory
 # and sums its runs (``kTile`` in ``csrc/backward.cu``).
@@ -95,36 +98,39 @@ def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed,
     """K3 over the first ``live`` sorted positions; returns num_unique (a
     0-dim int64 tensor) in compressed mode. ``zeroed``: full mode into an
     output this module zeroed, whose old rows K3 need not read."""
-    width = grad_y.shape[1]
-    num_tiles = -(-live // TILE)
-    device = grad_y.device
-    head = torch.empty((num_tiles, width), dtype=torch.float32, device=device)
-    tail = torch.empty_like(head)
-    ranks = tail_rank = num_unique = None
-    if compressed:
-        ranks = torch.empty(num_tiles, dtype=torch.int64, device=device)
-        tail_rank = torch.empty_like(ranks)
-        num_unique = torch.empty((), dtype=torch.int64, device=device)
-    t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
-    lib = _build.load_library()
-    if lib.cuembed_coo_backward_tile() != TILE:
-        raise RuntimeError(f"K3 was built for tiles of {lib.cuembed_coo_backward_tile()} "
-                           f"positions, the wrapper sizes its scratch for {TILE}")
+    with trace.span("launch.k3"):
+        width = grad_y.shape[1]
+        num_tiles = -(-live // TILE)
+        device = grad_y.device
+        head = torch.empty((num_tiles, width), dtype=torch.float32, device=device)
+        tail = torch.empty_like(head)
+        ranks = tail_rank = num_unique = None
+        if compressed:
+            ranks = torch.empty(num_tiles, dtype=torch.int64, device=device)
+            tail_rank = torch.empty_like(ranks)
+            num_unique = torch.empty((), dtype=torch.int64, device=device)
+        t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
+        lib = _build.load_library()
+        if lib.cuembed_coo_backward_tile() != TILE:
+            raise RuntimeError(f"K3 was built for tiles of "
+                               f"{lib.cuembed_coo_backward_tile()} positions, the "
+                               f"wrapper sizes its scratch for {TILE}")
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(device):
-        err = lib.cuembed_coo_backward(
-            grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
-            out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
-            ptr(ranks), ptr(tail_rank), ptr(num_unique),
-            num_rows, grad_y.shape[0], live, width,
-            _DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
-            vec_bytes(grad_y, out), int(compressed), int(zeroed),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(err, "coo_backward_kernel")
+        with torch.cuda.device(device):
+            err = lib.cuembed_coo_backward(
+                grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
+                out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
+                ptr(ranks), ptr(tail_rank), ptr(num_unique),
+                num_rows, grad_y.shape[0], live, width,
+                _DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
+                vec_bytes(grad_y, out), int(compressed), int(zeroed),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on_error(err, "coo_backward_kernel")
+    trace.COUNTS["launch.k3_compressed" if compressed else "launch.k3_full"] += 1
     return num_unique
 
 
@@ -169,11 +175,7 @@ def embedding_backward_cuda(
         return out
     _launch(grad_y, transpose_indices, transpose_sample_ids, transpose_weights, out,
             None, live, num_categories, compressed=False, zeroed=initial_grad is None)
-    embedding_backward_cuda.launches += 1
     return out
-
-
-embedding_backward_cuda.launches = 0
 
 
 def embedding_backward_cuda_compressed(
@@ -217,8 +219,4 @@ def embedding_backward_cuda_compressed(
                                                       device=grad_y.device))
     num_unique = _launch(grad_y, transpose_indices, transpose_sample_ids,
                          transpose_weights, rows, uniq, live, 0, compressed=True)
-    embedding_backward_cuda_compressed.launches += 1
     return CompressedGrad(rows, uniq, num_unique)
-
-
-embedding_backward_cuda_compressed.launches = 0

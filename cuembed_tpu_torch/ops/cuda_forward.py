@@ -12,8 +12,9 @@ Each wrapper checks its inputs, then computes with the plain PyTorch
 version (:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU,
 and launches its kernel for tensors on a CUDA device, on the current
 stream, as :func:`launch_plan` lays it out. A kernel that fails to build or
-launch raises; nothing falls back. Each wrapper's ``launches`` attribute
-counts the kernel's launches.
+launch raises; nothing falls back. Each launch is counted
+(``trace.counters()``'s ``launch.k1``, ``launch.k2``) and, while a profiler
+records, spanned (``cuembed::launch.k1``, ``cuembed::launch.k2``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from cuembed_tpu_torch.types import (
     CombineMode,
     accumulation_dtype,
 )
+from cuembed_tpu_torch.utils import trace
 
 # Storage dtype -> the kernels' dtype code.
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -194,31 +196,34 @@ def embedding_forward_cuda(
     out = torch.empty((batch, width), dtype=table.dtype, device=table.device)
     if batch == 0 or width == 0:
         return out
-    acc_dt = accumulation_dtype(table.dtype, low_precision_math)
-    mean = mode == CombineMode.MEAN
-    vec = _vec_bytes(width, table.element_size(), table, out)
-    plan = launch_plan(width * table.element_size() // vec, batch, csr=False,
-                       weighted=weights is not None)
-    lib = _build.load_library()
-    with torch.cuda.device(table.device):
-        err = lib.cuembed_fixed_forward(
-            table.data_ptr(), indices.data_ptr(),
-            weights.data_ptr() if weights is not None else None,
-            out.data_ptr(),
-            num_rows, batch, hotness, width,
-            _DTYPE_CODE[table.dtype], indices.element_size(),
-            int(acc_dt != torch.float32), vec,
-            rounded_reciprocal(hotness, acc_dt) if mean else 1.0, int(mean),
-            plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
-            plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(err, "fixed_forward_kernel")
-    embedding_forward_cuda.launches += 1
+    span = (trace.begin("launch.k1")
+            if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        acc_dt = accumulation_dtype(table.dtype, low_precision_math)
+        mean = mode == CombineMode.MEAN
+        vec = _vec_bytes(width, table.element_size(), table, out)
+        plan = launch_plan(width * table.element_size() // vec, batch, csr=False,
+                           weighted=weights is not None)
+        lib = _build.load_library()
+        with torch.cuda.device(table.device):
+            err = lib.cuembed_fixed_forward(
+                table.data_ptr(), indices.data_ptr(),
+                weights.data_ptr() if weights is not None else None,
+                out.data_ptr(),
+                num_rows, batch, hotness, width,
+                _DTYPE_CODE[table.dtype], indices.element_size(),
+                int(acc_dt != torch.float32), vec,
+                rounded_reciprocal(hotness, acc_dt) if mean else 1.0, int(mean),
+                plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
+                plan.smem_bytes,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on_error(err, "fixed_forward_kernel")
+    finally:
+        if span is not None:
+            trace.end(span)
+    trace.COUNTS["launch.k1"] += 1
     return out
-
-
-embedding_forward_cuda.launches = 0
 
 
 def embedding_forward_cuda_csr(
@@ -262,27 +267,30 @@ def embedding_forward_cuda_csr(
     out = torch.empty((batch, width), dtype=table.dtype, device=table.device)
     if batch == 0 or width == 0:
         return out
-    acc_dt = accumulation_dtype(table.dtype, low_precision_math)
-    vec = _vec_bytes(width, table.element_size(), table, out)
-    plan = launch_plan(width * table.element_size() // vec, batch, csr=True,
-                       weighted=weights is not None)
-    lib = _build.load_library()
-    with torch.cuda.device(table.device):
-        err = lib.cuembed_csr_forward(
-            table.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
-            weights.data_ptr() if weights is not None else None,
-            out.data_ptr(),
-            num_rows, batch, indices.shape[0], width,
-            _DTYPE_CODE[table.dtype], indices.element_size(),
-            offsets.element_size(), int(acc_dt != torch.float32), vec,
-            int(mode == CombineMode.MEAN),
-            plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
-            plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(err, "csr_forward_kernel")
-    embedding_forward_cuda_csr.launches += 1
+    span = (trace.begin("launch.k2")
+            if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        acc_dt = accumulation_dtype(table.dtype, low_precision_math)
+        vec = _vec_bytes(width, table.element_size(), table, out)
+        plan = launch_plan(width * table.element_size() // vec, batch, csr=True,
+                           weighted=weights is not None)
+        lib = _build.load_library()
+        with torch.cuda.device(table.device):
+            err = lib.cuembed_csr_forward(
+                table.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
+                weights.data_ptr() if weights is not None else None,
+                out.data_ptr(),
+                num_rows, batch, indices.shape[0], width,
+                _DTYPE_CODE[table.dtype], indices.element_size(),
+                offsets.element_size(), int(acc_dt != torch.float32), vec,
+                int(mode == CombineMode.MEAN),
+                plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
+                plan.smem_bytes,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on_error(err, "csr_forward_kernel")
+    finally:
+        if span is not None:
+            trace.end(span)
+    trace.COUNTS["launch.k2"] += 1
     return out
-
-
-embedding_forward_cuda_csr.launches = 0

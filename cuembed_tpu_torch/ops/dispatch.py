@@ -47,6 +47,7 @@ from cuembed_tpu_torch.ops.lookup_torch import (
 from cuembed_tpu_torch.ops.narrow import LANES
 from cuembed_tpu_torch.ops.tiered import TieredConfig, auto_config, tiered_forward
 from cuembed_tpu_torch.types import CombineMode
+from cuembed_tpu_torch.utils import trace
 from cuembed_tpu_torch.utils.chip import chip_constants
 
 BACKENDS = ("auto", "pallas", "xla", "tiered", "narrow")
@@ -97,54 +98,60 @@ def forward(
     tiered_cfg: TieredConfig | None = None,
 ) -> torch.Tensor:
     """Route a forward lookup to the kernel or the plain version."""
-    _check_backend(backend)
-    if narrow_mod.packing_factor(table.shape[1]) > 1:
-        phys_bytes = table.shape[0] * LANES * table.element_size()
-        if backend == "tiered" and phys_bytes > _narrow_inline_pack_bytes():
-            raise ValueError(
-                "backend='tiered' on a raw narrow table would repack it "
-                "every call; store it line-packed (pack_narrow) and call "
-                "narrow_lookup(..., tiered_cfg=...) or use "
-                "EmbeddingBag(layout='packed')"
-            )
-        if backend in ("tiered", "narrow"):
-            cfg = tiered_cfg
-            if backend == "tiered" and cfg is None:
-                cfg = tiered_auto_config(table, indices, offsets, mode)
-            narrow_mod._tiers(cfg, indices, offsets, mode)  # the JAX engine's errors
-            backend = "auto"
-    elif backend == "narrow":
-        raise ValueError("backend='narrow' needs width < 128 with 128 % width == 0")
-    if backend == "tiered":
-        cfg = tiered_cfg or tiered_auto_config(table, indices, offsets, mode)
-        if cfg is None:
-            if mode == CombineMode.CONCAT:
+    span = (trace.begin("dispatch.forward")
+            if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        _check_backend(backend)
+        if narrow_mod.packing_factor(table.shape[1]) > 1:
+            phys_bytes = table.shape[0] * LANES * table.element_size()
+            if backend == "tiered" and phys_bytes > _narrow_inline_pack_bytes():
                 raise ValueError(
-                    "CONCAT is a pure gather and is never tiered; use "
-                    "backend='auto' or 'xla'"
+                    "backend='tiered' on a raw narrow table would repack it "
+                    "every call; store it line-packed (pack_narrow) and call "
+                    "narrow_lookup(..., tiered_cfg=...) or use "
+                    "EmbeddingBag(layout='packed')"
                 )
-            raise ValueError(
-                "backend='tiered' but the table fits the VMEM budget; "
-                "use backend='auto' (the plain gather is already fast)"
+            if backend in ("tiered", "narrow"):
+                cfg = tiered_cfg
+                if backend == "tiered" and cfg is None:
+                    cfg = tiered_auto_config(table, indices, offsets, mode)
+                narrow_mod._tiers(cfg, indices, offsets, mode)  # the JAX engine's errors
+                backend = "auto"
+        elif backend == "narrow":
+            raise ValueError("backend='narrow' needs width < 128 with 128 % width == 0")
+        if backend == "tiered":
+            cfg = tiered_cfg or tiered_auto_config(table, indices, offsets, mode)
+            if cfg is None:
+                if mode == CombineMode.CONCAT:
+                    raise ValueError(
+                        "CONCAT is a pure gather and is never tiered; use "
+                        "backend='auto' or 'xla'"
+                    )
+                raise ValueError(
+                    "backend='tiered' but the table fits the VMEM budget; "
+                    "use backend='auto' (the plain gather is already fast)"
+                )
+            return tiered_forward(table, indices, offsets, weights, mode=mode, cfg=cfg,
+                                  low_precision_math=low_precision_math)
+        if mode == CombineMode.CONCAT:
+            return table.index_select(0, indices.reshape(-1))
+        if backend == "xla":
+            return embedding_forward_torch(
+                table, indices, offsets, weights, mode=mode,
+                low_precision_math=low_precision_math,
             )
-        return tiered_forward(table, indices, offsets, weights, mode=mode, cfg=cfg,
-                              low_precision_math=low_precision_math)
-    if mode == CombineMode.CONCAT:
-        return table.index_select(0, indices.reshape(-1))
-    if backend == "xla":
-        return embedding_forward_torch(
+        if offsets is None:
+            return cuda_forward.embedding_forward_cuda(
+                table, indices, weights, mode=mode,
+                low_precision_math=low_precision_math,
+            )
+        return cuda_forward.embedding_forward_cuda_csr(
             table, indices, offsets, weights, mode=mode,
             low_precision_math=low_precision_math,
         )
-    if offsets is None:
-        return cuda_forward.embedding_forward_cuda(
-            table, indices, weights, mode=mode,
-            low_precision_math=low_precision_math,
-        )
-    return cuda_forward.embedding_forward_cuda_csr(
-        table, indices, offsets, weights, mode=mode,
-        low_precision_math=low_precision_math,
-    )
+    finally:
+        if span is not None:
+            trace.end(span)
 
 
 def backward(
@@ -197,5 +204,6 @@ def backward_compressed(
     _check_backend(backend)
     fn = (embedding_backward_compressed_torch if backend == "xla"
           else cuda_backward.embedding_backward_cuda_compressed)
-    return fn(grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
-              nnz=nnz, out=out)
+    with trace.span("dispatch.backward_compressed"):
+        return fn(grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
+                  nnz=nnz, out=out)

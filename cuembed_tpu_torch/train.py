@@ -43,6 +43,7 @@ from cuembed_tpu_torch.ops.transforms import (
     transpose_position_ordered,
 )
 from cuembed_tpu_torch.types import CombineMode, default_device
+from cuembed_tpu_torch.utils import trace
 
 
 def embedding_grad_y(loss_fn, pooled, *args, **kwargs) -> torch.Tensor:
@@ -134,11 +135,13 @@ def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
         t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
         cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
                                           backend=backend)
-    nu = min(int(cg.num_unique), cg.rows.shape[0])
+    # Two host waits: the unique count, then the in-range runs' positions.
+    nu = min(trace.wait("num_unique", int, cg.num_unique), cg.rows.shape[0])
     rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
     # The sentinel run (and any out-of-range index) updates nothing.
-    keep = (uniq >= 0) & (uniq < table.shape[0])
-    return rows[keep], uniq[keep].long()
+    in_range = (uniq >= 0) & (uniq < table.shape[0])
+    keep = trace.wait("keep_mask", torch.nonzero, in_range)[:, 0]
+    return rows.index_select(0, keep), uniq.index_select(0, keep).long()
 
 
 @torch.no_grad()
@@ -204,13 +207,15 @@ def rowwise_adagrad_sparse_update(
     ``"drop"`` its rows past the bound are dropped, with the head rows'
     gradient from the head product, as in the JAX function.
     """
-    rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
-                           drop_zero_coeff=True, tiered_cfg=tiered_cfg,
-                           unique_cap=unique_cap if overflow == "drop" else None)
-    new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
-    accum.index_copy_(0, uniq, new_acc)
-    scale = -lr / torch.sqrt(new_acc + eps)
-    table.index_add_(0, uniq, (rows * scale[:, None]).to(table.dtype))
+    with trace.span("train.row_sums"):
+        rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
+                               drop_zero_coeff=True, tiered_cfg=tiered_cfg,
+                               unique_cap=unique_cap if overflow == "drop" else None)
+    with trace.span("train.adagrad"):
+        new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
+        accum.index_copy_(0, uniq, new_acc)
+        scale = -lr / torch.sqrt(new_acc + eps)
+        table.index_add_(0, uniq, (rows * scale[:, None]).to(table.dtype))
     return table, accum
 
 

@@ -25,6 +25,7 @@ from cuembed_tpu.ref import embedding_backward_ref
 
 import cuembed_tpu_torch as tce
 from cuembed_tpu_torch.ops import cuda_backward, dispatch
+from cuembed_tpu_torch.utils import trace
 
 SENT = 2**31 - 1
 
@@ -289,13 +290,13 @@ def test_kernel_wrappers_check_inputs_and_route_cpu_to_plain():
     t_idx, t_sid = _sorted_coo(rng, 50, 60, 40, 8)
     gy = torch.from_numpy(rng.standard_normal((8, 4)).astype(np.float32))
     i, s = _t(t_idx), _t(t_sid)
-    launches = (cuda_backward.embedding_backward_cuda.launches,
-                cuda_backward.embedding_backward_cuda_compressed.launches)
+    launches = (trace.counters()["launch.k3_full"],
+                trace.counters()["launch.k3_compressed"])
     got = cuda_backward.embedding_backward_cuda_compressed(gy, i, s, nnz=50)
     want = tce.embedding_backward_compressed_torch(gy, i, s, nnz=50)
     assert torch.equal(got.rows, want.rows) and int(got.num_unique) == int(want.num_unique)
-    assert launches == (cuda_backward.embedding_backward_cuda.launches,
-                        cuda_backward.embedding_backward_cuda_compressed.launches)
+    assert launches == (trace.counters()["launch.k3_full"],
+                        trace.counters()["launch.k3_compressed"])
     with pytest.raises(ValueError, match="grad_y"):
         cuda_backward.embedding_backward_cuda(gy.double(), 40, i, s)
     with pytest.raises(ValueError, match="transpose_indices"):

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import cuembed_tpu_torch as tce
-from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward
+from cuembed_tpu_torch.ops import _build
+from cuembed_tpu_torch.utils import trace
 
 
 def _fake_sources(tmp_path, text):
@@ -51,8 +52,8 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
     def refuse():
         raise AssertionError("a CPU call tried to load the kernels")
     monkeypatch.setattr(_build, "load_library", refuse)
-    k1 = cuda_forward.embedding_forward_cuda.launches
-    k2 = cuda_forward.embedding_forward_cuda_csr.launches
+    k1 = trace.counters()["launch.k1"]
+    k2 = trace.counters()["launch.k2"]
     gen = torch.Generator().manual_seed(0)
     table = torch.randn((50, 12), generator=gen)
     idx = torch.randint(0, 50, (6, 3), generator=gen)
@@ -63,11 +64,11 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
         assert torch.equal(got, tce.embedding_forward_torch(table, idx))
         got = tce.embedding_lookup_csr(table, flat, offsets, backend=backend)
         assert torch.equal(got, tce.embedding_forward_torch(table, flat, offsets))
-    assert cuda_forward.embedding_forward_cuda.launches == k1
-    assert cuda_forward.embedding_forward_cuda_csr.launches == k2
+    assert trace.counters()["launch.k1"] == k1
+    assert trace.counters()["launch.k2"] == k2
     # The backward, through autograd and the sparse optimizers, likewise.
-    k3 = (cuda_backward.embedding_backward_cuda.launches,
-          cuda_backward.embedding_backward_cuda_compressed.launches)
+    k3 = (trace.counters()["launch.k3_full"],
+          trace.counters()["launch.k3_compressed"])
     leaf = table.clone().requires_grad_()
     tce.embedding_lookup(leaf, idx).sum().backward()
     tce.embedding_lookup_csr(leaf, flat, offsets).sum().backward()
@@ -75,5 +76,5 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
                                       idx,
                                       torch.ones((6, 12)), lr=0.1)
     assert leaf.grad is not None
-    assert k3 == (cuda_backward.embedding_backward_cuda.launches,
-                  cuda_backward.embedding_backward_cuda_compressed.launches)
+    assert k3 == (trace.counters()["launch.k3_full"],
+                  trace.counters()["launch.k3_compressed"])

@@ -18,6 +18,7 @@ from cuembed_tpu_torch.ops.lookup_torch import (
     embedding_forward_torch,
     rounded_reciprocal,
 )
+from cuembed_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -73,15 +74,15 @@ def test_auto_routes_cuda_tensors_to_the_kernels(gen):
     idx = torch.randint(0, 100, (8, 4), device="cuda", generator=gen)
     offsets = torch.tensor([0, 3, 3, 9], device="cuda")
     flat = torch.randint(0, 100, (12,), device="cuda", generator=gen)
-    k1, k2 = (cuda_forward.embedding_forward_cuda.launches,
-              cuda_forward.embedding_forward_cuda_csr.launches)
+    k1, k2 = (trace.counters()["launch.k1"],
+              trace.counters()["launch.k2"])
     for backend in ("auto", "pallas"):
         tce.embedding_lookup(table, idx, backend=backend)
         tce.embedding_lookup_csr(table, flat, offsets, backend=backend)
     tce.embedding_lookup(table, idx, backend="xla")
     tce.embedding_lookup(table, idx, mode=tce.CombineMode.CONCAT)
-    assert cuda_forward.embedding_forward_cuda.launches == k1 + 2
-    assert cuda_forward.embedding_forward_cuda_csr.launches == k2 + 2
+    assert trace.counters()["launch.k1"] == k1 + 2
+    assert trace.counters()["launch.k2"] == k2 + 2
 
 
 def test_module_defaults_to_the_card(gen):
@@ -310,9 +311,9 @@ def test_k3_is_deterministic(gen):
 def test_autograd_backward_runs_k3(gen):
     table = torch.randn((300, 64), device="cuda", generator=gen).requires_grad_()
     idx = torch.randint(0, 300, (32, 8), device="cuda", generator=gen)
-    before = cuda_backward.embedding_backward_cuda.launches
+    before = trace.counters()["launch.k3_full"]
     tce.embedding_lookup(table, idx).pow(2).sum().backward()
-    assert cuda_backward.embedding_backward_cuda.launches == before + 1
+    assert trace.counters()["launch.k3_full"] == before + 1
     ref = table.detach().clone().requires_grad_()
     tce.embedding_lookup(ref, idx, backend="xla").pow(2).sum().backward()
     torch.testing.assert_close(table.grad, ref.grad, rtol=1e-5, atol=1e-5)
@@ -450,12 +451,12 @@ def test_tiered_forward_runs_k1_and_k2(gen):
     w = torch.rand((64, 8), device="cuda", generator=gen)
     offsets = torch.tensor([0, 3, 3, 9, 20], device="cuda")
     flat = torch.randint(0, 1000, (24,), device="cuda", generator=gen)
-    k1, k2 = cuda_forward.embedding_forward_cuda, cuda_forward.embedding_forward_cuda_csr
-    n1, n2 = k1.launches, k2.launches
+    before = trace.counters()
     got = tce.embedding_lookup(table, idx, w, backend="tiered", tiered_cfg=TIERED_CFG)
     got_csr = tce.embedding_lookup_csr(table, flat, offsets, backend="tiered",
                                        tiered_cfg=tce.csr_combine_config(1000, 16))
-    assert (k1.launches, k2.launches) == (n1 + 1, n2 + 1)
+    after = trace.counters()
+    assert [after[k] - before[k] for k in ("launch.k1", "launch.k2")] == [1, 1]
     assert torch.equal(got, tce.embedding_lookup(table, idx, w))
     assert torch.equal(got, embedding_forward_torch(table, idx, None, w))
     assert torch.equal(got_csr, embedding_forward_torch(table, flat, offsets))
@@ -476,7 +477,6 @@ def test_narrow_lookup_runs_k1_on_the_view(gen, monkeypatch):
         seen.append((t.data_ptr(), tuple(t.shape)))
         return real(t, *args, **kwargs)
 
-    spy.launches = 0  # the wrapper counts on the module's name
     monkeypatch.setattr(cuda_forward, "embedding_forward_cuda", spy)
     got = narrow.narrow_lookup(packed, 1001, 32, idx, tiered_cfg=TIERED_CFG)
     assert seen == [(packed.data_ptr(), (1004, 32))]
@@ -501,19 +501,19 @@ def test_tiered_backward_runs_k3(gen):
         grads = []
         for cfg in (TIERED_CFG, None):
             t = table.clone().requires_grad_()
-            before = cuda_backward.embedding_backward_cuda.launches
+            before = trace.counters()["launch.k3_full"]
             (tce.embedding_lookup(t, idx, tiered_cfg=cfg) * gy).float().sum().backward()
-            assert cuda_backward.embedding_backward_cuda.launches == before + 1
+            assert trace.counters()["launch.k3_full"] == before + 1
             grads.append(t.grad)
         assert torch.equal(*grads)
         flat = idx.reshape(-1)
         masked = torch.where(flat < TIERED_CFG.mxu_head_rows, SENTINEL, flat)
         sid = torch.arange(flat.numel(), device="cuda", dtype=torch.int32) // 8
-        before = cuda_backward.embedding_backward_cuda.launches
+        before = trace.counters()["launch.k3_full"]
         split = tiered_backward_coo(gy, 1000, idx, None,
                                     *transpose_position_ordered(sid, masked), TIERED_CFG,
                                     accumulation_dtype=torch.float32)
-        assert cuda_backward.embedding_backward_cuda.launches == before + 1
+        assert trace.counters()["launch.k3_full"] == before + 1
         assert split.dtype == dtype and torch.equal(split, grads[1])
 
 
@@ -531,9 +531,9 @@ def test_compressed_tiered_keeps_the_sentinel_run_out(gen):
     flat = torch.where(idx < 32, SENTINEL, idx).reshape(-1)
     sid = torch.arange(flat.numel(), device="cuda", dtype=torch.int32) // 8
     coo = transpose_position_ordered(sid, flat, coeff.reshape(-1))
-    before = cuda_backward.embedding_backward_cuda_compressed.launches
+    before = trace.counters()["launch.k3_compressed"]
     got = embedding_backward_compressed_tiered(gy, 1000, idx, coeff, *coo, TIERED_CFG)
-    assert cuda_backward.embedding_backward_cuda_compressed.launches == before + 1
+    assert trace.counters()["launch.k3_compressed"] == before + 1
     want = embedding_backward_compressed_tiered(
         gy.cpu(), 1000, idx.cpu(), coeff.cpu(), *(t.cpu() for t in coo), TIERED_CFG)
     nu = int(want.num_unique)
@@ -610,10 +610,9 @@ def test_int8_lookups_on_the_card(gen):
 
 
 def _counts():
-    return (cuda_forward.embedding_forward_cuda.launches,
-            cuda_forward.embedding_forward_cuda_csr.launches,
-            cuda_backward.embedding_backward_cuda.launches,
-            cuda_backward.embedding_backward_cuda_compressed.launches)
+    c = trace.counters()
+    return tuple(c[k] for k in ("launch.k1", "launch.k2", "launch.k3_full",
+                                "launch.k3_compressed"))
 
 
 def _launched(before):
@@ -753,24 +752,22 @@ def test_offloaded_lookup_and_step_run_the_kernels(gen):
     gy = rng.standard_normal((B, W)).astype(np.float32)
     card = tce.HostOffloadTable(table, hot, cold_cap=B * H)
     cpu = tce.HostOffloadTable(table, hot, cold_cap=B * H, device="cpu")
-    k1 = cuda_forward.embedding_forward_cuda
-    n1 = k1.launches
+    n1 = trace.counters()["launch.k1"]
     batch = card.prepare(idx)
     got = card.lookup(batch, mode=tce.CombineMode.MEAN)
-    assert k1.launches == n1 + 1
+    assert trace.counters()["launch.k1"] == n1 + 1
     coeff = torch.full((B, H), 1.0 / H, device="cuda")
     want = tce.embedding_lookup(torch.from_numpy(table).cuda(), torch.from_numpy(idx).cuda(),
                                 coeff)
     assert torch.equal(got, want)
-    k3 = cuda_backward.embedding_backward_cuda_compressed
-    n3 = k3.launches
+    n3 = trace.counters()["launch.k3_compressed"]
     card.sgd_update(batch, torch.from_numpy(gy).cuda(), lr=0.1)
     cpu.sgd_update(cpu.prepare(idx), torch.from_numpy(gy), lr=0.1)
     card.adagrad_init()
     cpu.adagrad_init()
     card.adagrad_update(card.prepare(idx), torch.from_numpy(gy).cuda(), lr=0.1)
     cpu.adagrad_update(cpu.prepare(idx), torch.from_numpy(gy), lr=0.1)
-    assert k3.launches == n3 + 2
+    assert trace.counters()["launch.k3_compressed"] == n3 + 2
     np.testing.assert_allclose(card.full_table(), cpu.full_table(), rtol=1e-5, atol=1e-5)
 
 
@@ -850,14 +847,14 @@ def replicated_ranks(rank, world, tmp):
     table, idx, gy = (x.cuda() for x in _planned_problem())
     ib, gb = ({"t": local_block(x, mesh, ("model", None))} for x in (idx, gy))
     placed = apply_plan(p, {"t": table}, mesh)
-    n3 = cuda_backward.embedding_backward_cuda_compressed.launches
+    n3 = trace.counters()["launch.k3_compressed"]
     sgd = planned_sgd_update(p, {"t": placed["t"].clone()}, ib, gb, mesh=mesh, lr=0.1)["t"]
     t, a = planned_adagrad_update(p, placed, planned_adagrad_init(p, placed, mesh), ib, gb,
                                   mesh=mesh, lr=0.1)
     torch.cuda.synchronize()
     return {"placement": p.tables["t"].placement, "sgd": sgd.cpu(), "adagrad": t["t"].cpu(),
             "acc": a["t"].cpu(),
-            "k3": cuda_backward.embedding_backward_cuda_compressed.launches - n3}
+            "k3": trace.counters()["launch.k3_compressed"] - n3}
 
 
 def test_replicated_planned_updates_are_bitwise_on_every_rank(gen, tmp_path):
@@ -949,19 +946,20 @@ def test_graph_captured_kernel_equals_eager(gen, dtype, csr):
     w = torch.rand((B, H), device="cuda", generator=gen)
     offsets = torch.arange(0, B * H + 1, H, device="cuda")
     if csr:
-        kernel = cuda_forward.embedding_forward_cuda_csr
+        counter = "launch.k2"
 
         def fn():
-            return kernel(table, idx.view(-1), offsets, w.view(-1))
+            return cuda_forward.embedding_forward_cuda_csr(table, idx.view(-1), offsets,
+                                                           w.view(-1))
     else:
-        kernel = cuda_forward.embedding_forward_cuda
+        counter = "launch.k1"
 
         def fn():
-            return kernel(table, idx, w)
+            return cuda_forward.embedding_forward_cuda(table, idx, w)
     eager = fn()
-    before = kernel.launches
+    before = trace.counters()[counter]
     g, out = _capture(fn)
-    assert kernel.launches == before + 2  # the warm-up and the capture
+    assert trace.counters()[counter] == before + 2  # the warm-up and the capture
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
@@ -969,7 +967,7 @@ def test_graph_captured_kernel_equals_eager(gen, dtype, csr):
     g.replay()
     g.replay()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 2
+    assert trace.counters()[counter] == before + 2
     assert torch.equal(out, fn())
 
 
