@@ -6,12 +6,12 @@
 Phases, each of which fails the run (nonzero exit) on any fault:
 
 1. The card: name, count, and ``nvidia-smi``'s name and power limit.
-2. The build: ``csrc/forward.cu`` and ``csrc/backward.cu`` compiled from
-   this checkout, with the build time and ptxas's register, spill and
-   static shared-memory counts for K1, K2 and K3, and the launch shapes at
-   the flagship calls (registers, spills, shared memory per block,
-   threads, resident blocks per SM) of K1 and K2, as the wrappers plan
-   them, and of K3.
+2. The build: ``csrc/forward.cu``, ``csrc/backward.cu`` and
+   ``csrc/adagrad.cu`` compiled from this checkout, with the build time and
+   ptxas's register, spill and static shared-memory counts for K1, K2, K3
+   and K4, and the launch shapes at the flagship calls (registers, spills,
+   shared memory per block, threads, resident blocks per SM) of K1 and K2,
+   as the wrappers plan them, of K3, and of K4 at widths 256 and 128.
 3. Parity grids on the card. K1 (fixed-hotness) and K2 (CSR) against their
    plain PyTorch versions over the shapes of tests/test_parity_bitwise.py,
    bags of 2100 and the flagship width at hotness 64 over a ragged last
@@ -54,10 +54,22 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    weighted CSR, CONCAT; full and compressed, launched twice) on
    integer-valued grad_y, bit for bit against its plain version.
 6. K3 timed at the flagship batch (full mode into a zeroed buffer,
-   compressed mode, CSR) beside its plain version, ``F.embedding_bag``'s
-   backward, its bound and the first design's times (PR 2, from PERF.md);
+   compressed mode into an unzeroed one, CSR) beside its plain version,
+   ``F.embedding_bag``'s backward, its bound and the first design's times
+   (PR 2, from PERF.md);
    the transpose; a dense step and an AdaGrad step end to end, each with a
-   ``torch.profiler`` breakdown of device time.
+   ``torch.profiler`` breakdown of device time. Then K4, row-wise AdaGrad's
+   apply, at the flagship's shapes (10M x 256 fp16, hotness 64) and at the
+   DLRM-v2 table with the most ids (40M x 128 fp16, hotness 100): one
+   launch on K3's unzeroed compressed sums, counted, against the plain
+   apply (accumulators within 1e-6, table rows within one fp16 spacing of
+   the step and one of the result, no NaN, untouched rows unchanged), then
+   timed beside its bound, the plain apply and the torch ops it replaced.
+   Every counted phase, in this process and in the spawned ranks, checks
+   its K4 launches too (0 unless it runs an AdaGrad update on the card),
+   and the ``kernels`` line carries the counted runs' K4 launches, as it
+   does K1-K3's; the timing loops' and the checks' other updates print on
+   a line of their own.
 7. The TPU engines' API (ROADMAP P7) on the same kernels, each path counted
    the same way. Serving, at config 2: ``backend="tiered"`` with
    ``auto_config(10M, 256, 2, 64)`` (K1) and config 3's weighted CSR under
@@ -180,7 +192,8 @@ from cuembed_tpu_torch import fused as fused_mod
 from cuembed_tpu_torch.models import DLRM, DLRMConfig
 from cuembed_tpu_torch.models.dlrm import (bce_with_logits, interaction,
                                            params_from_numpy)
-from cuembed_tpu_torch.ops import _build, cuda_backward, cuda_forward, dispatch, narrow, quant
+from cuembed_tpu_torch.ops import (_build, cuda_adagrad, cuda_backward, cuda_forward, dispatch,
+                                   narrow, quant)
 from cuembed_tpu_torch.ops import tiered as tiered_mod
 from cuembed_tpu_torch.ops.head import head_grad, tiered_backward_coo
 from cuembed_tpu_torch.ops.lookup_torch import SENTINEL, embedding_backward_compressed_tiered
@@ -316,14 +329,17 @@ def check_sparse_step(name, got, want, old, touched):
 
 
 PLAIN_NAMES = ("embedding_forward_torch", "embedding_backward_torch",
-               "embedding_backward_compressed_torch")
+               "embedding_backward_compressed_torch", "rowwise_adagrad_apply_torch")
 
 
 @contextlib.contextmanager
 def plain_path_forbidden(*modules):
-    """Make the plain versions raise if the kernels' callers reach them."""
+    """Make the plain versions raise if the kernels' callers reach them;
+    where K3's are forbidden, so is K4's (an AdaGrad update's apply)."""
     def refuse(*args, **kwargs):
         raise AssertionError("the main path took the plain version")
+    if cuda_backward in modules:
+        modules += (cuda_adagrad,)
     saved = [(m, n, getattr(m, n)) for m in modules for n in PLAIN_NAMES
              if hasattr(m, n)]
     for m, n, _ in saved:
@@ -337,6 +353,9 @@ def plain_path_forbidden(*modules):
 
 COUNTED = ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed")
 _counted_from = trace.counters()
+# K4's launches in the counted runs: this process's, and the spawned ranks'
+# (each rank saves its own "counted" for the parent to add).
+K4_COUNTED = {"counted": 0, "ranks": 0}
 
 
 def zero_counts():
@@ -352,11 +371,22 @@ def launch_counts() -> tuple:
     return tuple(now[k] - _counted_from[k] for k in COUNTED)
 
 
+def k4_checked(name, k4):
+    """K4's launches since :func:`zero_counts`; fail unless there are ``k4``
+    of them, else add them to ``K4_COUNTED``."""
+    got = trace.counters()["launch.k4"] - _counted_from["launch.k4"]
+    if got != k4:
+        raise SystemExit(f"[{name}] launched K4 {got} times, expected {k4}")
+    K4_COUNTED["counted"] += got
+    return got
+
+
 @contextlib.contextmanager
-def counted(expect, name):
+def counted(expect, name, k4=0):
     """Set the counts to 0, run the body, and fail unless it launched
-    exactly ``expect`` of K1, K2, K3 full and K3 compressed (in that order).
-    Every phase counts its launches so, and returns them in that order."""
+    exactly ``expect`` of K1, K2, K3 full and K3 compressed (in that order)
+    and ``k4`` of K4 (one an AdaGrad update on the card). Every phase counts
+    its launches so, and returns them in that order."""
     zero_counts()
     yield
     torch.cuda.synchronize()
@@ -364,7 +394,9 @@ def counted(expect, name):
     if got != tuple(expect):
         raise SystemExit(f"[{name}] launched (K1, K2, K3 full, K3 compressed) "
                          f"{got}, expected {tuple(expect)}")
-    print(f"[{name}] launches (K1, K2, K3 full, K3 compressed): {got}")
+    k4_checked(name, k4)
+    print(f"[{name}] launches (K1, K2, K3 full, K3 compressed): {got}"
+          + (f"; K4: {k4}" if k4 else ""))
 
 
 def phase_build():
@@ -446,6 +478,22 @@ def phase_build():
               f"shared memory a block, {shape['threads']} threads, "
               f"{shape['blocks_per_sm']} blocks resident per SM, {shape['slices']} column "
               f"slice(s) a row")
+    # K4: every instantiation spill-free; its launches at the flagship's and
+    # the DLRM-v2 tables' fp16 widths (int64 ids, 16-byte gradient loads).
+    mine = {k: v for k, v in kernels.items() if "28rowwise_adagrad_apply_kernel" in k}
+    if not mine:
+        raise SystemExit("[build] ptxas reported no rowwise_adagrad_apply_kernel")
+    regs = [v["regs"] for v in mine.values()]
+    spills = sum(v["spill"] for v in mine.values())
+    print(f"[build] rowwise_adagrad_apply_kernel: {len(mine)} instantiations, registers "
+          f"{min(regs)}..{max(regs)}, spill bytes {spills}")
+    if spills:
+        raise SystemExit(f"[build] K4 spills {spills} bytes")
+    for width in (WIDTH, K4_SHAPES[1][2]):
+        shape = cuda_adagrad.launch_shape(torch.float16, width)
+        print(f"[build] K4 at width {width} fp16: {shape['threads']} threads, "
+              f"{shape['blocks_per_sm']} blocks resident per SM, {shape['rows_in_flight']} "
+              f"rows in flight a warp, {shape['chunks']} register chunk(s) a row")
 
 
 def grid_problem(gen, batch, width, hotness, dtype, vmax, integer, csr, index_dtype,
@@ -836,12 +884,14 @@ def phase_backward_grid():
                 runs = [cuda_backward.embedding_backward_cuda_compressed(
                     gy, t_idx, t_sid, w, nnz=nnz) for _ in range(2)]
                 want = plain_bwd_c(gy, t_idx, t_sid, w, nnz=nnz)
-                got, again = runs[0].rows, runs[1].rows
+                # Only the first num_unique entries are K3's output.
+                nu = int(want.num_unique)
+                got, again = runs[0].rows[:nu], runs[1].rows[:nu]
                 ok = (torch.equal(got, again)
-                      and int(runs[0].num_unique) == int(want.num_unique)
-                      and torch.equal(runs[0].unique_indices,
-                                      want.unique_indices))
-                want = want.rows
+                      and int(runs[0].num_unique) == nu
+                      and torch.equal(runs[0].unique_indices[:nu],
+                                      want.unique_indices[:nu]))
+                want = want.rows[:nu]
             else:
                 got, again = (cuda_backward.embedding_backward_cuda(
                     gy, V, t_idx, t_sid, w, nnz=nnz,
@@ -863,7 +913,7 @@ def phase_backward_grid():
                     k3 = sum_error_ratio(got[:nu], exact, mass, count, 24)
                     pl = sum_error_ratio(want[:nu], exact, mass, count,
                                          BITS[dtype])
-                    ok = ok and not got[nu:].any()
+                    ok = ok and got.shape[0] == nu
                 else:
                     try:
                         k3 = check_full_grad("grid", got, start, uniq, exact,
@@ -928,10 +978,12 @@ def flagship_exact(idx, flat, offsets, gen):
         got = kc(gy, t_idx, t_sid, t_c, nnz=n)
         again = kc(gy, t_idx, t_sid, t_c, nnz=n)
         want = plain_bwd_c(gy, t_idx, t_sid, t_c, nnz=n)
-        comp_err = max_abs_err(got.rows, want.rows)
-        comp_ok = (torch.equal(got.rows, again.rows) and torch.equal(got.rows, want.rows)
-                   and torch.equal(got.unique_indices, want.unique_indices)
-                   and int(got.num_unique) == int(want.num_unique) == runs.numel())
+        nu = runs.numel()  # only the first num_unique entries are K3's output
+        comp_err = max_abs_err(got.rows[:nu], want.rows[:nu])
+        comp_ok = (torch.equal(got.rows[:nu], again.rows[:nu])
+                   and torch.equal(got.rows[:nu], want.rows[:nu])
+                   and torch.equal(got.unique_indices[:nu], want.unique_indices[:nu])
+                   and int(got.num_unique) == int(want.num_unique) == nu)
         del got, again, want, gy
         torch.cuda.empty_cache()
         print(f"[{name} exact] {live} sorted positions in {runs.numel()} runs, the "
@@ -1329,7 +1381,7 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
     got = kc(gy32, t_idx, t_sid)
     _, exact, mass, count = float64_runs(gy32, t_idx, t_sid, None, live)
     ratio = sum_error_ratio(got.rows[:nu], exact, mass, count, 24)
-    if int(got.num_unique) != nu or ratio > 1 or got.rows[nu:].any():
+    if int(got.num_unique) != nu or ratio > 1:
         raise SystemExit(f"[K3 compressed] off at the flagship size: num_unique "
                          f"{int(got.num_unique)} of {nu}, error/bound {ratio}")
     del got, exact, mass, count
@@ -1338,13 +1390,11 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
                                   compressed=True)
     kcm = bench.cuda_time_ms(lambda: kc(gy32, t_idx, t_sid), iters=10)
     pcm = bench.cuda_time_ms(lambda: plain_bwd_c(gy32, t_idx, t_sid), warmup=1, iters=3)
-    pad = live * WIDTH * 4 / bench.H100_HBM_BYTES_PER_S * 1e3
-    print(f"[K3 compressed] fixed flagship: kernel {kcm:.4f} ms (with the zeroed "
-          f"[{live}, {WIDTH}] fp32 output it fills; PR 2: {PR2_K3_MS['compressed']} ms); "
+    print(f"[K3 compressed] fixed flagship: kernel {kcm:.4f} ms (into an unzeroed "
+          f"[{live}, {WIDTH}] fp32 output; PR 2, into zeros: {PR2_K3_MS['compressed']} ms); "
           f"plain {pcm:.4f} ms; bound "
-          f"{cbound['bound_ms']:.4f} ms for the touched rows ({cbound['bytes']} bytes), "
-          f"{cbound['bound_ms'] + pad:.4f} ms with the zero padding; error/bound "
-          f"against float64 sums {ratio:.3g}")
+          f"{cbound['bound_ms']:.4f} ms for the touched rows ({cbound['bytes']} bytes); "
+          f"error/bound against float64 sums {ratio:.3g}")
 
     # CSR, weighted: K3 full over the live prefix.
     c_idx, c_sid, c_w = csr_coo(flat, offsets, csr_w, tce.CombineMode.SUM)
@@ -1422,6 +1472,111 @@ def step_timings(bag, idx, steps=5):
         device_breakdown(name, fn)
     bag.weight.grad = None
     return out
+
+
+# K4 at the flagship's shapes (BASELINE.json config 2's table and ids) and
+# at the DLRM-v2 table with the most ids (portbench's dlrmv2-criteo-mh,
+# feature 21: 40M x 128, hotness 100, alpha 1.05), fp16 as portbench's
+# cells store them: (label, rows, width, hotness, alpha).
+K4_SHAPES = (("flagship 10M x 256 fp16, hotness 64", NUM_ROWS, WIDTH, HOTNESS, ALPHA),
+             ("DLRM-v2 feature 21: 40M x 128 fp16, hotness 100", 40_000_000, 128, 100, 1.05))
+K4_GRAD_SCALE = 0.01  # grad_y ~ N(0, 0.01^2), portbench's train traffic
+
+
+def k4_bound_ms(rows, width, elem, index_bytes):
+    """K4's least time for ``rows`` applied rows at the data sheet's HBM
+    rate: each reads its fp32 gradient row, its index and its accumulator,
+    and reads and writes its table row and accumulator."""
+    return rows * (width * (4 + 2 * elem) + index_bytes + 8) / bench.H100_HBM_BYTES_PER_S * 1e3
+
+
+def replaced_chain(table, accum, cg, lr, eps=1e-8):
+    """The torch ops K4 replaced (the update before it): the count and the
+    in-range runs read back to the host, then the gathers, the mean,
+    ``index_copy_``, the root, the scale, the cast and ``index_add_``."""
+    nu = min(int(cg.num_unique), cg.rows.shape[0])
+    rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
+    keep = torch.nonzero((uniq >= 0) & (uniq < table.shape[0]))[:, 0]
+    rows, uniq = rows.index_select(0, keep), uniq.index_select(0, keep).long()
+    new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
+    accum.index_copy_(0, uniq, new_acc)
+    scale = -lr / torch.sqrt(new_acc + eps)
+    table.index_add_(0, uniq, (rows * scale[:, None]).to(table.dtype))
+
+
+def phase_k4(gen):
+    """K4 against the plain version at ``K4_SHAPES``: K3's compressed sums of
+    a power-law batch (its buffers unzeroed, as the update leaves them), then
+    one K4 launch (counted) and the plain apply on the same state; the
+    touched rows' accumulators within 1e-6 and their table rows within one
+    fp16 spacing of the step and one of the result (the two take a row's
+    sum of squares in other orders), no NaN, and a sample of the untouched
+    rows unchanged. Then K4 timed beside its bound (the applied rows'
+    bytes at the data sheet's rate), the plain apply and the torch ops it
+    replaced. Returns (the worst error over its bound, the flagship's
+    times)."""
+    worst, flagship_t = 0.0, None
+    for label, rows, width, hotness, alpha in K4_SHAPES:
+        table = torch.empty((rows, width), dtype=torch.float16, device="cuda")
+        table.uniform_(-width ** -0.5, width ** -0.5, generator=gen)
+        accum = torch.rand(rows, device="cuda", generator=gen)
+        perm = torch.randperm(rows, device="cuda", generator=gen)
+        ids = perm[card_ids(rows, hotness, alpha, gen)]
+        del perm
+        gy = torch.randn((BATCH, width), device="cuda", generator=gen) * K4_GRAD_SCALE
+        cg = train._compressed_sums(table, ids, gy, None, None, tce.CombineMode.SUM, "auto",
+                                    drop_zero_coeff=True)
+        nu = int(cg.num_unique)
+        uniq = cg.unique_indices[:nu]
+        touched = uniq[(uniq >= 0) & (uniq < rows)].long()
+        n = touched.numel()
+        spare = torch.ones(rows, dtype=torch.bool, device="cuda")
+        spare[touched] = False
+        sample = torch.nonzero(spare)[:, 0]
+        sample = sample[torch.randperm(sample.numel(), device="cuda", generator=gen)[:1 << 20]]
+        del spare
+        t0, a0, s0 = table[touched].clone(), accum[touched].clone(), table[sample].clone()
+        with plain_path_forbidden(cuda_adagrad), counted((0, 0, 0, 0), f"k4 {label}", k4=1):
+            cuda_adagrad.rowwise_adagrad_apply_cuda(table, accum, cg, lr=ADAGRAD_LR, eps=1e-8)
+        kt, ka = table[touched].clone(), accum[touched].clone()
+        if not torch.equal(table[sample], s0):
+            raise SystemExit(f"[k4 {label}] K4 changed a row it did not touch")
+        table[touched], accum[touched] = t0, a0
+        cuda_adagrad.rowwise_adagrad_apply_torch(table, accum, cg, lr=ADAGRAD_LR, eps=1e-8)
+        pt, pa = table[touched], accum[touched]
+        if kt.isnan().any() or ka.isnan().any():
+            raise SystemExit(f"[k4 {label}] NaN reached the table or the accumulators")
+        acc_ratio = ((ka.double() - pa.double()).abs() / (1e-6 * pa.double().abs())).max().item()
+        want, old = pt.float(), t0.float()
+        bound = ulp(want - old, torch.float16) + ulp(want, torch.float16)
+        row_ratio = ((kt.float() - want).abs() / bound).max().item()
+        equal = (kt == pt).all(dim=1).float().mean().item()
+        print(f"[k4 {label}] {n} rows applied of {cg.rows.shape[0]} positions "
+              f"(num_unique {nu}); K4 against the plain apply: accumulators {acc_ratio:.3g} "
+              f"of 1e-6, table rows {row_ratio:.3g} of one fp16 spacing of the step and "
+              f"one of the result (at most 1 passes), {equal:.2%} of rows bit for bit; "
+              f"1 launch; {sample.numel()} untouched rows unchanged")
+        worst = max(worst, acc_ratio, row_ratio)
+        if acc_ratio > 1 or row_ratio > 1:
+            raise SystemExit(f"[k4 {label}] K4 is off the plain apply")
+        del t0, a0, s0, kt, ka, pt, pa, want, old, bound, sample
+        # Times: each call applies the same rows again, in place.
+        k = bench.cuda_time_ms(lambda: cuda_adagrad.rowwise_adagrad_apply_cuda(
+            table, accum, cg, lr=ADAGRAD_LR, eps=1e-8))
+        p = bench.cuda_time_ms(lambda: cuda_adagrad.rowwise_adagrad_apply_torch(
+            table, accum, cg, lr=ADAGRAD_LR, eps=1e-8), warmup=1, iters=5)
+        lib = bench.cuda_time_ms(lambda: replaced_chain(table, accum, cg, ADAGRAD_LR),
+                                 warmup=1, iters=5)
+        b = k4_bound_ms(n, width, 2, cg.unique_indices.element_size())
+        print(f"[k4 {label}] K4 {k:.4f} ms; bound {b:.4f} ms ({n} rows' bytes at "
+              f"{HBM_PEAK}), K4 at {b / k:.1%} of it; plain apply {p:.4f} ms; the torch ops "
+              f"it replaced (two host reads, gathers, index_copy_, index_add_) {lib:.4f} ms")
+        if flagship_t is None:
+            flagship_t = {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": b,
+                          "bound_by": "bytes", "num_unique": nu, "rows_applied": n}
+        del table, accum, ids, gy, cg, uniq, touched
+        torch.cuda.empty_cache()
+    return worst, flagship_t
 
 
 @contextlib.contextmanager
@@ -1647,10 +1802,10 @@ def phase_p7_training(bag, idx, hot_idx, gen):
 
     weight.grad = None
     # The dense step with tiered_cfg and the split: K3 full; the split's
-    # compressed form, SGD and AdaGrad: K3 compressed.
+    # compressed form, SGD and AdaGrad: K3 compressed; AdaGrad: K4.
     launches = np.array((1, 0, 2, 3))
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(launches, "p7 training")):
+          counted(launches, "p7 training", k4=1)):
         bag(idx, tiered_cfg=cfg).backward(gy)
         split_grad = split(idx)
         split_c = embedding_backward_compressed_tiered(gy32, NUM_ROWS, idx, None,
@@ -1789,15 +1944,15 @@ def phase_tables_table(gen, idx, calib_ids, flat, offsets, csr_w):
     plain_table, plain_acc, old = t.table.clone(), accum.clone(), t.table[touched]
     launches = np.zeros(4, np.int64)
     with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
-        for name, expect, fn in (
-            ("lookup", (1, 0, 0, 0), lambda: t.lookup(idx)),
-            ("lookup, host remap", (1, 0, 0, 0),
+        for name, expect, k4, fn in (
+            ("lookup", (1, 0, 0, 0), 0, lambda: t.lookup(idx)),
+            ("lookup, host remap", (1, 0, 0, 0), 0,
              lambda: t.lookup(rows, assume_remapped=True)),
-            ("csr lookup", (0, 1, 0, 0), lambda: t.lookup(flat, csr_w, offsets)),
-            ("adagrad", (0, 0, 0, 1), lambda: train.rowwise_adagrad_sparse_update(
+            ("csr lookup", (0, 1, 0, 0), 0, lambda: t.lookup(flat, csr_w, offsets)),
+            ("adagrad", (0, 0, 0, 1), 1, lambda: train.rowwise_adagrad_sparse_update(
                 t.table, accum, rows, gy, lr=ADAGRAD_LR)),
         ):
-            with counted(expect, f"p8 table {name}"):
+            with counted(expect, f"p8 table {name}", k4=k4):
                 out = fn()
             launches += expect
             if name.startswith(("lookup", "csr")):
@@ -1871,9 +2026,9 @@ def phase_tables_fused(gen, seed):
             fout = tce.fused_lookup(fused, spec, ids)
         with counted((T, 0, 0, 0), "p8 collection apply"):
             per = coll.apply(tables, ids)
-        with counted((0, 0, 0, 1), "p8 fused_adagrad_update"):
+        with counted((0, 0, 0, 1), "p8 fused_adagrad_update", k4=1):
             tce.fused_adagrad_update(fused, facc, spec, ids, gys, lr=ADAGRAD_LR)
-        with counted((0, 0, 0, T), "p8 collection adagrad_update"):
+        with counted((0, 0, 0, T), "p8 collection adagrad_update", k4=T):
             coll.adagrad_update(tables, accs, ids, gys, lr=ADAGRAD_LR)
     # The plain path on the same inputs: the lookups (tables before the
     # update: the fused copy) and the fused update's rows, as
@@ -1909,7 +2064,7 @@ def phase_tables_fused(gen, seed):
     del paths, before, plain_fused, plain_facc, plain_out, big_idx, big_gy, runs
     f_ms = bench.cuda_time_ms(lambda: tce.fused_lookup(fused, spec, ids))
     c_ms = bench.cuda_time_ms(lambda: coll.apply(tables, ids))
-    # The updates wait on the host (the count of distinct rows): host ms.
+    # The updates, host ms to a synchronize.
     fu_ms = statistics.median(timed(lambda: tce.fused_adagrad_update(
         fused, facc, spec, ids, gys, lr=ADAGRAD_LR))[1] for _ in range(5))
     cu_ms = statistics.median(timed(lambda: coll.adagrad_update(
@@ -2065,8 +2220,9 @@ def phase_trainer(gen):
     d = trainer.parse_args([])
     n = d.steps * d.tables
     launches = np.array((n, 0, 0, n))
+    # Each step's adagrad_update: K3 compressed and K4 a table.
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(launches, "p9 trainer")):
+          counted(launches, "p9 trainer", k4=n)):
         rate = trainer.main([])
     print(f"[p9 trainer] examples/train_dlrm_torch.py, defaults ({d.tables} tables x "
           f"{d.categories} x {d.width}, batch {d.batch}, hotness {d.hotness}, "
@@ -2213,7 +2369,7 @@ def phase_offload(seed):
         acc0 = torch.cat([off.head_accum, torch.from_numpy(off.tail_accum).cuda()])
         b = off.prepare(batches[0])
         with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-              counted((0, 0, 0, 1), f"p10 offload adagrad_update {step + 1}")):
+              counted((0, 0, 0, 1), f"p10 offload adagrad_update {step + 1}", k4=1)):
             _, ms = timed(lambda: off.adagrad_update(b, gy, lr=ADAGRAD_LR))
         ada_ms.append(ms)
         plain_t, plain_a = before.clone(), acc0.clone()
@@ -2334,9 +2490,10 @@ def run_update(name, mesh, table, idx, gy):
     return tb, acc
 
 
-def par_counted(expect, name, fn):
-    """fn() in a rank, counted from 0 with the plain versions forbidden;
-    returns (result, launches, seconds)."""
+def par_counted(expect, name, fn, k4=0):
+    """fn() in a rank, counted from 0 with the plain versions forbidden,
+    ``k4`` K4 launches expected as in :func:`counted`; returns (result,
+    launches, seconds)."""
     zero_counts()
     t0 = time.perf_counter()
     with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
@@ -2346,6 +2503,10 @@ def par_counted(expect, name, fn):
     got = launch_counts()
     if expect is not None and got != tuple(expect):
         raise RuntimeError(f"[{name}] launched {got} in a rank, expected {tuple(expect)}")
+    try:
+        k4_checked(name, k4)
+    except SystemExit as e:
+        raise RuntimeError(f"{e} in a rank") from None
     return out, got, seconds
 
 
@@ -2440,6 +2601,7 @@ def par_rank(rank, world, tmp, seed):
         out["d_lookup_bits"] = all(torch.equal(fo[nm], p) for nm, p in zip(names, po))
         out["d_lookup"] = [fo[nm].cpu() for nm in names]
         out["d"] = (fb.cpu(), facc.cpu(), [t.cpu() for t in pb], [a.cpu() for a in paccs])
+        out["k4"] = K4_COUNTED["counted"]
         torch.save(out, f"{tmp}/rank{rank}.pt")
         dist.barrier()
     finally:
@@ -2659,6 +2821,7 @@ def phase_parallel(seed, idx):
     for o in outs:
         for part in "abcd":
             launches += np.array(o["launches"][part])
+    K4_COUNTED["ranks"] += sum(o["k4"] for o in outs)
     secs = {p: round(max(o["seconds"][p] for o in outs), 2) for p in "abcd"}
     print(f"[p11 parallel] {PAR_RANKS} ranks on cuda:0 over gloo: {spawn_s:.1f} s with the "
           f"spawn; slowest rank's seconds by sub-phase {secs}; the routed flagship lookup "
@@ -2712,10 +2875,14 @@ PLAN_SGD_LR = 0.05
 # updates; the sharded-CSR request on the replicated and the row-sharded
 # table (K2).
 PLAN_STEP_EXPECT, PLAN_SGD_EXPECT, PLAN_CSR_EXPECT = (6, 0, 0, 6), (0, 0, 0, 6), (0, 2, 0, 0)
+# K4 a rank and AdaGrad step: the replicated table's update (the sharded
+# updates apply with torch ops).
+PLAN_STEP_K4 = 1
 # The planner's example, a rank, its 5 steps: 4 ranks place genre replicated,
-# item row-sharded and user hybrid (4 K1, 3 K3 compressed a step); one rank
-# replicates all three (3 and 3).
+# item row-sharded and user hybrid (4 K1, 3 K3 compressed, 1 K4 a step); one
+# rank replicates all three (3, 3 and 3).
 PLAN_EXAMPLE_EXPECT = {4: (20, 0, 0, 15), 1: (15, 0, 0, 15)}
+PLAN_EXAMPLE_K4 = {4: 5, 1: 15}
 # The example's pooled norms on 4 ranks against one, a secondary check beside
 # the replays (the hybrid's two partial sums round apart).
 PLAN_NORM_RTOL = 1e-3
@@ -2852,7 +3019,8 @@ def plan_rank_steps(p, mesh, ids_np, seed, rank, tmp):
             par.planned_adagrad_update(p, placed, accums, idx, gys, mesh=mesh, lr=ADAGRAD_LR)
             return pooled
         expect = PLAN_STEP_EXPECT if k < PLAN_STEPS else PLAN_SGD_EXPECT
-        pooled, got, secs = par_counted(expect, f"planner step {k}", step)
+        pooled, got, secs = par_counted(expect, f"planner step {k}", step,
+                                        k4=PLAN_STEP_K4 if k < PLAN_STEPS else 0)
         launches += got
         seconds += secs
         t1 = time.perf_counter()
@@ -2913,7 +3081,9 @@ def plan_rank(rank, world, tmp, seed):
         args = example.parse_args([])
         out["b"] = par_counted(
             PLAN_EXAMPLE_EXPECT[world], "planner example",
-            lambda: example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1)))
+            lambda: example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1)),
+            k4=PLAN_EXAMPLE_K4[world])
+        out["k4"] = K4_COUNTED["counted"]
         torch.save(out, f"{tmp}/rank{rank}.pt")
         dist.barrier()
     finally:
@@ -3257,6 +3427,7 @@ def phase_planner(seed):
         launches = np.zeros(4, np.int64)
         for o in outs:
             launches += o["a"][0] + np.array(o["b"][1])
+        K4_COUNTED["ranks"] += sum(o["k4"] for o in outs)
         strays = sum(o["a"][2] for o in outs)
         slow = {key: round(max(o["a"][3][key] for o in outs), 2) for key in ("cut", "saved")}
         print(f"[planner] {PLAN_RANKS} ranks on cuda:0 over gloo: {spawn_s:.1f} s with the "
@@ -3277,7 +3448,8 @@ def phase_planner(seed):
                                 world_size=1)
         try:
             with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-                  counted(PLAN_EXAMPLE_EXPECT[1], "planner example, NCCL, world size 1")):
+                  counted(PLAN_EXAMPLE_EXPECT[1], "planner example, NCCL, world size 1",
+                          k4=PLAN_EXAMPLE_K4[1])):
                 one = example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1))
             launches += np.array(PLAN_EXAMPLE_EXPECT[1])
             e1_one, e3_one = check_planned_example("NCCL", [one], (1, 1))
@@ -3387,6 +3559,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device is available")
 
     t_start = time.perf_counter()
+    k4_from = trace.counters()["launch.k4"]
     # 1. The card.
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -3537,7 +3710,7 @@ def main():
     train_launches = np.array((DENSE_STEPS + ADAGRAD_STEPS + 1, 2, DENSE_STEPS + 3,
                                ADAGRAD_STEPS + 1))
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(train_launches, "training path")):
+          counted(train_launches, "training path", k4=ADAGRAD_STEPS)):
         keep = drive_training(tbag, idx, flat, offsets, csr_w)
     dense_gy = keep["dense"][1]
     print(f"[training path] {DENSE_STEPS} dense steps (autograd + torch.optim.SGD; the "
@@ -3556,6 +3729,8 @@ def main():
     p7_train = phase_p7_training(tbag, idx, hot_idx, gen)
     del tbag
     torch.cuda.empty_cache()
+    # K4, row-wise AdaGrad's apply, at the flagship's and DLRM-v2's shapes.
+    errs["K4"], k4_t = phase_k4(gen)
 
     # 8. Tables, collections, fused groups, the DLRM and its trainer (ROADMAP
     # P8, P9), each counted; K1, K2 and K3 only.
@@ -3604,6 +3779,16 @@ def main():
              + p9_dlrm + p9_trainer + p10_offload + p11_parallel + p11_planner)
     print(f"[main path] launches of every path (K1, K2, K3 full, K3 compressed): "
           f"{tuple(int(x) for x in total)}")
+    # K4, launched by every AdaGrad update on the card: the counted runs, as
+    # for K1-K3; the timing loops and the checks' other updates apart.
+    k4_total = K4_COUNTED["counted"] + K4_COUNTED["ranks"]
+    print(f"[main path] K4 launches of every path: {k4_total} ({K4_COUNTED['ranks']} of them "
+          f"the ranks')")
+    print(f"[timing] K4 launches outside the counted runs (timing loops, updates beside "
+          f"the checks), not counted above: "
+          f"{trace.counters()['launch.k4'] - k4_from - K4_COUNTED['counted']}")
+    if not k4_total:
+        raise SystemExit("[main path] K4 never launched")
     kernels = []
     for name, source, replaces, t, n in (
         ("K1 fixed_forward_kernel", "forward.cu", "pallas_forward.py:55", fixed_t,
@@ -3621,6 +3806,14 @@ def main():
             "launches": int(n), "max_abs_err": errs[name[:2]],
             **t, "card": kind, "power_limit": power_limit,
         })
+    kernels.append({
+        "name": "K4 rowwise_adagrad_apply_kernel", "route": "cuda",
+        "source": "cuembed_tpu_torch/csrc/adagrad.cu",
+        "replaces": "no Pallas kernel: XLA gathers and scatters "
+                    "(cuembed_tpu/train.py apply_compressed)",
+        "launches": int(k4_total), "max_err_over_bound": errs["K4"],
+        **k4_t, "card": kind, "power_limit": power_limit,
+    })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

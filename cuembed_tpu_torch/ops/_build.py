@@ -1,13 +1,14 @@
 """Build and load the kernels' shared library.
 
-``csrc/forward.cu`` (K1, K2) and ``csrc/backward.cu`` (K3) are compiled by
-``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
-then linked into one shared library with a plain C interface, loaded with
-``ctypes``. The build runs at the first CUDA use, into
-``cuembed_tpu_torch/_build/``, and the library's name carries a hash of the
-sources, the shared header and the flags, so a stale library is never
-loaded. A failed build raises with nvcc's output. The log beside the
-library ends with each ``nvcc``'s wall time and the build's.
+``csrc/forward.cu`` (K1, K2), ``csrc/backward.cu`` (K3) and
+``csrc/adagrad.cu`` (K4) are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at the first CUDA use, into ``cuembed_tpu_torch/_build/``, and the
+library's name carries a hash of the sources, the shared header and the
+flags, so a stale library is never loaded. A failed build raises with
+nvcc's output. The log beside the library ends with each ``nvcc``'s wall
+time and the build's.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from cuembed_tpu_torch.utils import trace
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("forward.cu", "backward.cu")
+SOURCES = ("forward.cu", "backward.cu", "adagrad.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -164,4 +165,17 @@ def load_library() -> ctypes.CDLL:
         ptr,  # shape: int64[4]
     ]
     lib.cuembed_coo_backward_shape.restype = i32
+    lib.cuembed_rowwise_adagrad_apply.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # rows, uniq, num_unique, table, accum
+        i64, i64, i64,  # cap, num_rows, width
+        i32, i32, i32,  # dtype, index_bytes, vec
+        ctypes.c_float, ctypes.c_float,  # lr, eps
+        ptr,  # stream
+    ]
+    lib.cuembed_rowwise_adagrad_apply.restype = i32
+    lib.cuembed_rowwise_adagrad_apply_shape.argtypes = [
+        i64, i32, i32, i32,  # width, dtype, index_bytes, vec
+        ptr,  # shape: int64[4]
+    ]
+    lib.cuembed_rowwise_adagrad_apply_shape.restype = i32
     return lib

@@ -191,8 +191,10 @@ def embedding_backward_cuda_compressed(
     """Compressed gradient on K3 (arguments as
     :func:`~cuembed_tpu_torch.ops.lookup_torch.embedding_backward_compressed_torch`):
     run ``r`` of the live prefix, out-of-range runs included, goes to
-    ``rows[r]`` and ``unique_indices[r]``; the rest is zero, or keeps
-    ``out``'s values."""
+    ``rows[r]`` and ``unique_indices[r]``. Entries past ``num_unique`` keep
+    ``out``'s values; without ``out`` they are unspecified (K3 stores every
+    rank below the count and reads no old row, so its buffers are not
+    zeroed), and a reader takes only the first ``num_unique``."""
     _check_coo(grad_y, transpose_indices, transpose_sample_ids, transpose_weights)
     cap, width = transpose_indices.shape[0], grad_y.shape[1]
     if out is not None and (
@@ -209,8 +211,8 @@ def embedding_backward_cuda_compressed(
             nnz=nnz, live_cap=live_cap, out=out,
         )
     if out is None:
-        rows = torch.zeros((cap, width), dtype=grad_y.dtype, device=grad_y.device)
-        uniq = torch.zeros_like(transpose_indices)
+        rows = torch.empty((cap, width), dtype=grad_y.dtype, device=grad_y.device)
+        uniq = torch.empty_like(transpose_indices)
     else:
         rows, uniq = out
     live = _live(nnz, cap)

@@ -4,7 +4,8 @@
 The JAX backend names carry over so that callers do not change:
 
 * ``"auto"`` and ``"pallas"``: the hand-written kernels (K1 fixed, K2 CSR,
-  K3 backward) for CUDA tensors, the plain PyTorch version for CPU tensors;
+  K3 backward, K4 row-wise AdaGrad's apply) for CUDA tensors, the plain
+  PyTorch version for CPU tensors;
 * ``"xla"``: the plain PyTorch version on every device;
 * ``"tiered"``: :func:`~cuembed_tpu_torch.ops.tiered.tiered_forward` with
   the caller's ``tiered_cfg`` or the JAX package's automatic one, which
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from cuembed_tpu_torch.ops import cuda_backward, cuda_forward
+from cuembed_tpu_torch.ops import cuda_adagrad, cuda_backward, cuda_forward
 from cuembed_tpu_torch.ops import narrow as narrow_mod
 from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
@@ -207,3 +208,20 @@ def backward_compressed(
     with trace.span("dispatch.backward_compressed"):
         return fn(grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
                   nnz=nnz, out=out)
+
+
+def rowwise_adagrad_apply(
+    table: torch.Tensor,
+    accum: torch.Tensor,
+    cg: CompressedGrad,
+    *,
+    lr: float,
+    eps: float,
+    backend: str = "auto",
+):
+    """Route row-wise AdaGrad's apply of a compressed gradient to K4 or the
+    plain version (:mod:`~cuembed_tpu_torch.ops.cuda_adagrad`), in place."""
+    _check_backend(backend)
+    fn = (cuda_adagrad.rowwise_adagrad_apply_torch if backend == "xla"
+          else cuda_adagrad.rowwise_adagrad_apply_cuda)
+    return fn(table, accum, cg, lr=lr, eps=eps)

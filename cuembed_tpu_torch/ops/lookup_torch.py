@@ -125,8 +125,9 @@ class CompressedGrad(NamedTuple):
     """Compressed (deduplicated) embedding gradient.
 
     ``rows[i]`` is the gradient for table row ``unique_indices[i]``, for
-    ``i < num_unique``; rows past ``num_unique`` are zero and their
-    ``unique_indices`` are 0.
+    ``i < num_unique``, and a reader takes only those. Past ``num_unique``
+    the plain version leaves zero rows and indices 0; K3 leaves what its
+    buffers held (see ``embedding_backward_cuda_compressed``).
     """
 
     rows: torch.Tensor  # [capacity, width]

@@ -193,7 +193,9 @@ def _compressed_adagrad_apply(table_l, accum_l, rows, uniq, lr, eps, g2=None):
         g2 = (rows * rows).mean(dim=1)
     new_acc = accum_l.index_select(0, uniq) + g2
     accum_l.index_copy_(0, uniq, new_acc)
-    scale = -lr / torch.sqrt(new_acc + eps)
+    # The IEEE quotient of two tensors, as the single-device apply takes it
+    # (``-lr / t`` would be ``t.reciprocal() * -lr``, two roundings).
+    scale = torch.full_like(new_acc, -lr) / torch.sqrt(new_acc + eps)
     table_l.index_add_(0, uniq, (rows * scale[:, None]).to(table_l.dtype))
     return table_l, accum_l
 

@@ -12,8 +12,18 @@ apply the embedding gradient sparsely instead:
 * :func:`sgd_sparse_update`, :func:`rowwise_adagrad_sparse_update` and
   :func:`adam_sparse_update` sort the lookup's COO by index, sum each
   index's run on K3 in compressed mode (``dispatch.backward_compressed``),
-  and update one row per distinct index (``index_add_`` / ``index_copy_``
-  on unique indices, so the result is deterministic on the card).
+  and update one row per distinct index.
+* Row-wise AdaGrad applies its step on K4
+  (``dispatch.rowwise_adagrad_apply``) to K3's output as it lies on the
+  card: K4 reads the row count there, so the untiered update reads nothing
+  back to the host (the tiered ``overflow="drop"`` path still reads two
+  counts once, in ``embedding_backward_compressed_tiered``), and it reads
+  no row past the count, so K3's buffers are not zeroed. No ``index_add_``
+  or ``index_copy_`` runs on the card; one writer a row, so the result is
+  deterministic.
+* SGD and Adam read the row count and the in-range runs back to the host
+  (two waits a table, ``trace.wait``), then update with ``index_add_`` /
+  ``index_copy_`` on the unique indices.
 
 A ``tiered_cfg`` matters to SGD and AdaGrad only under ``overflow="drop"``,
 where it bounds the updates as the JAX functions do: the rows under
@@ -36,6 +46,7 @@ from cuembed_tpu_torch.ops import dispatch
 from cuembed_tpu_torch.ops.head import nonhead_capacity
 from cuembed_tpu_torch.ops.lookup_torch import (
     SENTINEL,
+    CompressedGrad,
     embedding_backward_compressed_tiered,
 )
 from cuembed_tpu_torch.ops.transforms import (
@@ -100,15 +111,18 @@ def _head_rows(table, tiered_cfg, offsets, mode) -> int:
     return min(tiered_cfg.mxu_head_rows, table.shape[0])
 
 
-def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
-              drop_zero_coeff, tiered_cfg=None, drop_past_capacity=False,
-              unique_cap=None):
-    """Per-row gradient sums of the batch: ``(rows, uniq)`` for the distinct
-    in-range indices, ascending. With ``drop_zero_coeff``, positions whose
-    coefficient is 0 (CSR padding, zero weights) touch no row (a head row
-    they hit keeps a zero gradient). ``drop_past_capacity`` keeps only the
-    first ``nonhead_capacity`` sorted non-head positions and ``unique_cap``
-    only the first ``unique_cap`` non-head rows (the JAX functions'
+def _compressed_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
+                     drop_zero_coeff, tiered_cfg=None, drop_past_capacity=False,
+                     unique_cap=None) -> CompressedGrad:
+    """Per-row gradient sums of the batch, as K3's compressed gradient:
+    ``rows[r]`` sums the run of ``unique_indices[r]``, ascending, for ``r <
+    num_unique`` (a count on the device, which may exceed the capacity
+    after a ``unique_cap`` cut); out-of-range runs (the sentinel) included;
+    entries past the count are unspecified. With ``drop_zero_coeff``,
+    positions whose coefficient is 0 (CSR padding, zero weights) touch no
+    row (a head row they hit keeps a zero gradient). ``drop_past_capacity``
+    keeps only the first ``nonhead_capacity`` sorted non-head positions and
+    ``unique_cap`` only the first ``unique_cap`` non-head rows (the JAX functions'
     ``overflow="drop"``): with a ``tiered_cfg`` (see :func:`_head_rows`)
     either takes the head rows from the head product. Without a cut the
     config changes no sum, and the sums are untiered."""
@@ -127,14 +141,19 @@ def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
             k = nonhead_capacity(tiered_cfg, t_idx.shape[0])
             t_idx, t_sid = t_idx[:k], t_sid[:k]
             t_coeff = None if t_coeff is None else t_coeff[:k]
-        cg = embedding_backward_compressed_tiered(
+        return embedding_backward_compressed_tiered(
             gy.contiguous(), table.shape[0], indices,
             None if coeff is None else coeff.reshape(indices.shape),
             t_idx, t_sid, t_coeff, tiered_cfg, unique_cap=unique_cap, backend=backend)
-    else:
-        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
-        cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
-                                          backend=backend)
+    t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+    return dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
+                                        backend=backend)
+
+
+def _row_sums(table, indices, grad_y, offsets, weights, mode, backend, **cut):
+    """Per-row gradient sums of the batch: ``(rows, uniq)`` for the distinct
+    in-range indices, ascending (arguments as :func:`_compressed_sums`)."""
+    cg = _compressed_sums(table, indices, grad_y, offsets, weights, mode, backend, **cut)
     # Two host waits: the unique count, then the in-range runs' positions.
     nu = min(trace.wait("num_unique", int, cg.num_unique), cg.rows.shape[0])
     rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]
@@ -208,14 +227,13 @@ def rowwise_adagrad_sparse_update(
     gradient from the head product, as in the JAX function.
     """
     with trace.span("train.row_sums"):
-        rows, uniq = _row_sums(table, indices, grad_y, offsets, weights, mode, backend,
-                               drop_zero_coeff=True, tiered_cfg=tiered_cfg,
-                               unique_cap=unique_cap if overflow == "drop" else None)
+        cg = _compressed_sums(table, indices, grad_y, offsets, weights, mode, backend,
+                              drop_zero_coeff=True, tiered_cfg=tiered_cfg,
+                              unique_cap=unique_cap if overflow == "drop" else None)
     with trace.span("train.adagrad"):
-        new_acc = accum.index_select(0, uniq) + (rows * rows).mean(dim=1)
-        accum.index_copy_(0, uniq, new_acc)
-        scale = -lr / torch.sqrt(new_acc + eps)
-        table.index_add_(0, uniq, (rows * scale[:, None]).to(table.dtype))
+        # K4 on the card: the count stays there; a count past the capacity
+        # (a unique_cap cut) is clamped to it, as in the JAX function.
+        dispatch.rowwise_adagrad_apply(table, accum, cg, lr=lr, eps=eps, backend=backend)
     return table, accum
 
 

@@ -33,10 +33,10 @@ The spans, from the entry point down:
 * ``api.lookup``: one ``embedding_lookup`` / ``embedding_lookup_csr`` (index
   preparation, the checks, the ``autograd.Function``).
 * ``dispatch.forward``, ``dispatch.backward_compressed``: the routing.
-* ``launch.k1``, ``launch.k2``, ``launch.k3``: a kernel's launch plan, the
-  ctypes call and its error check.
+* ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k4``: a kernel's
+  launch plan, the ctypes call and its error check.
 * ``train.row_sums``, ``train.adagrad``: a row-wise AdaGrad update's
-  per-row gradient sums and its update of the touched rows.
+  per-row gradient sums and its update of the touched rows (K4).
 * ``wait.<site>``: a read on the host of a size or mask that the device
   computes (:func:`wait`), which waits for the device's queue to drain.
 * ``build``: the library's compile (``ops/_build.py``).
@@ -45,9 +45,11 @@ The spans, from the entry point down:
 incremented in place where it happens. :func:`counters` returns a snapshot;
 compare two snapshots for the counts in between. There is no reset.
 
-* ``launch.k1``, ``launch.k2``, ``launch.k3_full``, ``launch.k3_compressed``:
-  kernel launches (a CUDA graph counts its captures, not its replays);
-* ``wait.num_unique``, ``wait.keep_mask``: the host reads of :func:`wait`;
+* ``launch.k1``, ``launch.k2``, ``launch.k3_full``, ``launch.k3_compressed``,
+  ``launch.k4``: kernel launches (a CUDA graph counts its captures, not its
+  replays);
+* ``wait.num_unique``, ``wait.keep_mask``: the host reads of :func:`wait`
+  (SGD's and Adam's updates; row-wise AdaGrad's makes none);
 * ``build``: compiles of the library in this process (a process that only
   loaded a library built before reads 0).
 """
@@ -62,7 +64,7 @@ from torch.autograd import profiler as torch_profiler
 PREFIX = "cuembed::"
 
 COUNTS = dict.fromkeys(
-    ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed",
+    ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed", "launch.k4",
      "wait.num_unique", "wait.keep_mask", "build"), 0)
 _OFF = contextlib.nullcontext()
 

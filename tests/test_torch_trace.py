@@ -2,11 +2,13 @@
 
 On the CPU: under ``torch.profiler`` a collection's lookup and AdaGrad update
 give the spans of each host layer, nested, which the benchmark's trace
-reduction keeps as they are; each ``wait.*`` span is a ``wait.*`` count; with
-no profiler recording no span is entered; a compile of the library is
-counted and spanned. On the card (``-m cuda``): K1's and K3's kernels link to
-their launch spans by correlation id, a lookup reads nothing back to the
-host, and every host read of an update is inside a ``wait.*`` span.
+reduction keeps as they are; the AdaGrad update waits for nothing, and each
+``wait.*`` span of an SGD update is a ``wait.*`` count; with no profiler
+recording no span is entered; a compile of the library is counted and
+spanned. On the card (``-m cuda``): K1's, K3's and K4's kernels link to their
+launch spans by correlation id, a lookup and an AdaGrad update read nothing
+back to the host, and every host read of an SGD update is inside a
+``wait.*`` span.
 """
 
 import stat
@@ -25,12 +27,13 @@ TABLES = 3
 ROWS, WIDTH, HOTNESS, BATCH = 100, 8, 3, 5
 LOOKUP = ("collection.apply", "api.lookup", "dispatch.forward")
 UPDATE = ("collection.adagrad_update", "train.row_sums", "dispatch.backward_compressed",
-          "wait.num_unique", "wait.keep_mask", "train.adagrad")
+          "train.adagrad")
+# The host reads of SGD's update (AdaGrad's makes none).
+WAITS = ("wait.num_unique", "wait.keep_mask")
 # Each span and the span it lies in.
 PARENT = {"api.lookup": "collection.apply", "dispatch.forward": "api.lookup",
           "train.row_sums": "collection.adagrad_update",
           "dispatch.backward_compressed": "train.row_sums",
-          "wait.num_unique": "train.row_sums", "wait.keep_mask": "train.row_sums",
           "train.adagrad": "collection.adagrad_update"}
 
 
@@ -51,26 +54,41 @@ def _step(coll, tables, accums, ids, gy):
     coll.adagrad_update(tables, accums, ids, gy, lr=0.1)
 
 
-@pytest.fixture(scope="module")
-def traced():
-    """One lookup and one update of the collection under the profiler: the
-    raw events, their reduction, and the counters' change."""
+def _sgd_step(coll, tables, accums, ids, gy):
+    coll.sgd_update(tables, ids, gy, lr=0.1)
+
+
+def _traced(step):
+    """``step`` of a collection under the profiler: the raw events, their
+    reduction, and the counters' change."""
     problem = _problem()
     before = trace.counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _step(*problem)
+        step(*problem)
     after = trace.counters()
     raw = list(prof.profiler.kineto_results.events())
     return raw, reduce(raw), {k: after[k] - before[k] for k in after}
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """One lookup and one AdaGrad update of the collection."""
+    return _traced(_step)
+
+
+@pytest.fixture(scope="module")
+def traced_sgd():
+    """One SGD update of the collection, which still reads sizes back."""
+    return _traced(_sgd_step)
 
 
 def _spans(events, name):
     return sorted((s, e) for n, s, e, _ in events.ops if n == trace.PREFIX + name)
 
 
-@pytest.mark.parametrize("name", LOOKUP + UPDATE)
-def test_each_layer_has_its_spans(traced, name):
-    _, events, _ = traced
+@pytest.mark.parametrize("name", LOOKUP + UPDATE + WAITS)
+def test_each_layer_has_its_spans(traced, traced_sgd, name):
+    _, events, _ = traced_sgd if name in WAITS else traced
     once = name.startswith("collection.")
     assert len(_spans(events, name)) == (1 if once else TABLES)
 
@@ -99,15 +117,21 @@ def test_the_benchmark_keeps_the_spans_as_they_are(traced):
 
 
 @pytest.mark.parametrize("site", ["num_unique", "keep_mask"])
-def test_wait_spans_are_wait_counts(traced, site):
-    _, events, delta = traced
+def test_wait_spans_are_wait_counts(traced_sgd, site):
+    _, events, delta = traced_sgd
     assert delta["wait." + site] == len(_spans(events, "wait." + site)) == TABLES
+
+
+def test_adagrad_update_waits_for_nothing(traced):
+    _, events, delta = traced
+    assert [delta[w] for w in WAITS] == [0, 0]
+    assert not [n for n, *_ in events.ops if n.startswith(trace.PREFIX + "wait.")]
 
 
 def test_counters_are_snapshots():
     c = trace.counters()
     assert set(c) == {"launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed",
-                      "wait.num_unique", "wait.keep_mask", "build"}
+                      "launch.k4", "wait.num_unique", "wait.keep_mask", "build"}
     c["wait.num_unique"] += 100
     assert trace.counters()["wait.num_unique"] == c["wait.num_unique"] - 100
 
@@ -174,11 +198,12 @@ def card():
 
 K1 = ("fixed_forward_kernel",)
 K3 = ("coo_backward_kernel", "coo_backward_fixup_kernel", "run_count_kernel", "run_scan_kernel")
+K4 = ("rowwise_adagrad_apply_kernel",)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("launch,kernels", [("launch.k1", K1), ("launch.k3", K3)],
-                         ids=["k1", "k3"])
+@pytest.mark.parametrize("launch,kernels", [("launch.k1", K1), ("launch.k3", K3),
+                                            ("launch.k4", K4)], ids=["k1", "k3", "k4"])
 def test_kernels_link_to_their_launch_span(card, launch, kernels):
     problem = _problem(card)
     _step(*problem)  # the library loaded outside the trace
@@ -222,9 +247,39 @@ def test_a_lookup_reads_nothing_back(card, sync_warnings):
 
 
 @pytest.mark.cuda
-def test_every_host_read_of_an_update_is_a_wait(card, sync_warnings, monkeypatch):
+def test_an_adagrad_update_reads_nothing_back(card):
+    coll, tables, accums, ids, gy = _problem(card)
+    _step(coll, tables, accums, ids, gy)
+    torch.cuda.synchronize()
+    before = trace.counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coll.adagrad_update(tables, accums, ids, gy, lr=0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = trace.counters()
+    assert after["launch.k4"] - before["launch.k4"] == TABLES
+    assert [after[w] - before[w] for w in WAITS] == [0, 0]
+
+
+@pytest.mark.cuda
+def test_k4_spans_nest_in_the_adagrad_span(card):
     problem = _problem(card)
     _step(*problem)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _step(*problem)
+        torch.cuda.synchronize()
+    events = reduce(prof.profiler.kineto_results.events())
+    parents, mine = _spans(events, "train.adagrad"), _spans(events, "launch.k4")
+    assert len(mine) == TABLES
+    assert all(any(ps <= s and e <= pe for ps, pe in parents) for s, e in mine)
+
+
+@pytest.mark.cuda
+def test_every_host_read_of_an_update_is_a_wait(card, sync_warnings, monkeypatch):
+    problem = _problem(card)
+    _sgd_step(*problem)
     torch.cuda.synchronize()
     real = trace.wait
 
@@ -237,8 +292,7 @@ def test_every_host_read_of_an_update_is_a_wait(card, sync_warnings, monkeypatch
 
     monkeypatch.setattr(trace, "wait", marked)
     sync_warnings.clear()
-    coll, tables, accums, ids, gy = problem
-    coll.adagrad_update(tables, accums, ids, gy, lr=0.1)
+    _sgd_step(*problem)
     depth, outside = 0, []
     for w in sync_warnings:
         if isinstance(w, str):

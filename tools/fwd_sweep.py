@@ -175,8 +175,8 @@ def dedup_plan(src):
 
 
 def build_all(keys):
-    """One library per forward source: backward.cu once, each forward
-    source, all compiled together. Returns {source: (library, ptxas log)}."""
+    """One library per forward source: backward.cu and adagrad.cu once,
+    each forward source, all compiled together. Returns {source: (library, ptxas log)}."""
     nvcc = _build.find_nvcc()
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     SWEEP_DIR.mkdir(parents=True)
@@ -192,14 +192,16 @@ def build_all(keys):
     jobs = [[nvcc, *flags, "-c", "-o", str(bwd), str(_build.SOURCE_DIR / "backward.cu")]]
     jobs += [[nvcc, *flags, "-c", "-o", str(d / "forward.o"), str(d / "forward.cu")]
              for d in dirs]
+    apply = SWEEP_DIR / "adagrad.o"
+    jobs.append([nvcc, *flags, "-c", "-o", str(apply), str(_build.SOURCE_DIR / "adagrad.cu")])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         logs = [out for out, _ in pool.map(_build._run, jobs)]
     print(f"[sweep] {len(jobs)} compiles started together: {time.perf_counter() - t0:.1f} s")
     libs = {}
-    for key, d, log in zip(keys, dirs, logs[1:]):
+    for key, d, log in zip(keys, dirs, logs[1:-1]):
         so = d / "libcuembed.so"
-        _build._run([nvcc, "-shared", "-o", str(so), str(d / "forward.o"), str(bwd)])
+        _build._run([nvcc, "-shared", "-o", str(so), str(d / "forward.o"), str(bwd), str(apply)])
         _build.build = lambda so=so: so  # load_library's body on this library
         libs[key] = (_build.load_library.__wrapped__(), log)
     return libs

@@ -97,8 +97,8 @@ def variant_source(variant: str) -> str:
 
 
 def build_all(variants):
-    """One library per variant: forward.cu once, each backward.cu variant,
-    all compiled together. Returns {variant: ctypes library}."""
+    """One library per variant: forward.cu and adagrad.cu once, each
+    backward.cu variant, all compiled together. Returns {variant: ctypes library}."""
     nvcc = _build.find_nvcc()
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
     SWEEP_DIR.mkdir(parents=True)
@@ -113,14 +113,18 @@ def build_all(variants):
     jobs = [[nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(fwd), str(_build.SOURCE_DIR / "forward.cu")]]
     jobs += [[nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(d / "backward.o"), str(d / "backward.cu")]
              for d in dirs.values()]
+    apply = SWEEP_DIR / "adagrad.o"
+    jobs.append([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(apply),
+                 str(_build.SOURCE_DIR / "adagrad.cu")])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         logs = [out for out, _ in pool.map(_build._run, jobs)]
     print(f"[sweep] {len(jobs)} compiles started together: {time.perf_counter() - t0:.1f} s")
     libs = {}
-    for (v, d), log in zip(dirs.items(), logs[1:]):
+    for (v, d), log in zip(dirs.items(), logs[1:-1]):
         so = d / "libcuembed.so"
-        _build._run([_build.find_nvcc(), "-shared", "-o", str(so), str(fwd), str(d / "backward.o")])
+        _build._run([_build.find_nvcc(), "-shared", "-o", str(so), str(fwd), str(d / "backward.o"),
+                     str(apply)])
         _build.build = lambda so=so: so  # load_library's body on this library
         libs[v] = _build.load_library.__wrapped__()
         flagship = r"_ZN7cuembed19coo_backward_kernelIflLb0ELi16E\S*"
