@@ -95,7 +95,9 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    shrinks it with its state. At ``DLRMConfig``'s defaults (8 tables of
    100K x 64 fp32, hotness 8, batch 65536): ``fused_lookup`` launches K1
    once and equals the 8 ``EmbeddingCollection.apply`` lookups and the
-   plain path bit for bit; ``fused_adagrad_update`` launches K3 once, and
+   plain path bit for bit (the collection's tables in one call into the
+   library: its batched K1 forward); ``fused_adagrad_update`` launches K3
+   once, and
    it, the per-table updates and the plain path's update of the fused
    table are each held to the float64 step (``check_fp32_step``: the
    step's change under the fp32 row sums' recursive-sum bound). The DLRM,
@@ -107,7 +109,12 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    defaults (examples/s, and whether the native host library loaded;
    nothing builds it here), then a collection at its shapes: one lookup
    bit for bit and one AdaGrad update held to the float64 step, beside
-   the plain path.
+   the plain path. Then a collection at MLPerf DLRM-v2's shapes (26 fp16
+   tables of width 128, hotness 1-100; the 40M-row tables cut to
+   ``DLRMV2_ROWS_CAP`` rows): a query of 700 samples and a batch of 65,536,
+   each served by one call of the batched forward (26 K1 launches) and
+   equal to the 26 per-table ``embedding_lookup`` calls bit for bit; its
+   launches print on a line of their own, outside the ``kernels`` line.
 9. The host-offloaded table and the parallel layer (ROADMAP P10, P11
    below the planner), each call counted and the plain versions forbidden.
    ``HostOffloadTable`` at benchmarks/offload_benchmark.py's defaults (2M x
@@ -2024,8 +2031,11 @@ def phase_tables_fused(gen, seed):
     with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
         with counted((1, 0, 0, 0), "p8 fused_lookup"):
             fout = tce.fused_lookup(fused, spec, ids)
+        batches = trace.counters()["launch.k1_batch"]
         with counted((T, 0, 0, 0), "p8 collection apply"):
             per = coll.apply(tables, ids)
+        if trace.counters()["launch.k1_batch"] != batches + 1:
+            raise SystemExit("[p8 collection apply] not one call of the batched forward")
         with counted((0, 0, 0, 1), "p8 fused_adagrad_update", k4=1):
             tce.fused_adagrad_update(fused, facc, spec, ids, gys, lr=ADAGRAD_LR)
         with counted((0, 0, 0, T), "p8 collection adagrad_update", k4=T):
@@ -2260,6 +2270,54 @@ def phase_trainer(gen):
             acc=(torch.zeros_like(accs[t]),
                  {"K3 path": accs[t], "plain path": plain_a[t]})))
     return launches, e1, e3
+
+
+# MLPerf DLRM-v2's sparse arch (portbench/configs/dlrmv2-criteo-mh.json): the
+# rows and multi-hot size of each of its 26 tables of width 128.
+DLRMV2_ROWS = (40_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
+               40_000_000, 3_067_956, 405_282, 10, 2_209, 11_938, 155, 4, 976, 14,
+               40_000_000, 40_000_000, 40_000_000, 590_152, 12_973, 108, 36)
+DLRMV2_HOTNESS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27,
+                  10, 3, 1, 1)
+DLRMV2_ROWS_CAP = 4_000_000  # rows drawn a table: 1 GB of fp16 at most
+
+
+def phase_batched_collection(gen):
+    """EmbeddingCollection.apply's batched K1 forward at MLPerf DLRM-v2's
+    shapes: a serving query of 700 samples and a training batch of 65,536,
+    each one call into the library (26 K1 launches, counted here and kept
+    out of the ``kernels`` line), bit for bit against the 26 per-table
+    ``embedding_lookup`` calls."""
+    names = [f"t{i}" for i in range(len(DLRMV2_ROWS))]
+    rows = [min(r, DLRMV2_ROWS_CAP) for r in DLRMV2_ROWS]
+    coll = tce.EmbeddingCollection([tce.TableConfig(n, r, 128, dtype=torch.float16,
+                                                    hotness=h)
+                                    for n, r, h in zip(names, rows, DLRMV2_HOTNESS)])
+    tables = {n: torch.randn((r, 128), device="cuda", generator=gen).to(torch.float16)
+              for n, r in zip(names, rows)}
+    for batch in (700, 65536):
+        ids = {n: torch.randint(0, r, (batch, h), device="cuda", generator=gen)
+               for n, r, h in zip(names, rows, DLRMV2_HOTNESS)}
+        before = trace.counters()
+        with plain_path_forbidden(cuda_forward, dispatch):
+            got = coll.apply(tables, ids)
+            torch.cuda.synchronize()
+            after = trace.counters()
+            want = {n: tce.embedding_lookup(tables[n], idx) for n, idx in ids.items()}
+        calls = tuple(after[k] - before[k] for k in ("launch.k1", "launch.k1_batch",
+                                                     "collection.batched_tables"))
+        if calls != (26, 1, 26):
+            raise SystemExit(f"[batched] (K1, batched calls, batched tables) {calls}, "
+                             f"expected (26, 1, 26)")
+        same = all(torch.equal(got[n], want[n]) for n in names)
+        print(f"[batched] DLRM-v2 collection, batch {batch}: one call, (K1, batched calls, "
+              f"batched tables) {calls}, outside the kernels line; "
+              f"{'equal to' if same else 'DIFFERENT from'} the 26 per-table lookups bit "
+              f"for bit")
+        if not same:
+            raise SystemExit("[batched] the batched forward differs from the per-table one")
+    del tables, ids, got, want
+    torch.cuda.empty_cache()
 
 
 # -- ROADMAP P10: the host-offloaded table -------------------------------------
@@ -3739,6 +3797,7 @@ def main():
     p8_fused, e1_fused, e3_fused = phase_tables_fused(gen, args.seed)
     p9_dlrm, e1_dlrm, e3_dlrm = phase_dlrm(gen, args.seed)
     p9_trainer, e1_trainer, e3_trainer = phase_trainer(gen)
+    phase_batched_collection(gen)
     print(f"[p8/p9] launches (K1, K2, K3 full, K3 compressed): table "
           f"{tuple(int(x) for x in p8_table)}, collection and fused "
           f"{tuple(int(x) for x in p8_fused)}, dlrm {tuple(int(x) for x in p9_dlrm)}, "

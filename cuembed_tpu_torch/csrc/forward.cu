@@ -54,6 +54,7 @@
 #include "common.cuh"
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace cuembed {
@@ -507,6 +508,9 @@ cudaError_t by_dtype(int dtype, int index_bytes, bool has_w, int lpm, int vec_by
   }
 }
 
+// int64 words of a descriptor of cuembed_fixed_forward_many.
+constexpr int kFixedDescWords = 20;
+
 }  // namespace cuembed
 
 extern "C" {
@@ -531,6 +535,37 @@ int cuembed_fixed_forward(const void* table, const void* indices, const void* we
   l.stream = static_cast<cudaStream_t>(stream);
   return static_cast<int>(cuembed::by_dtype(dtype, index_bytes, weights != nullptr,
                                             low_precision_math, vec_bytes, l));
+}
+
+// K1 for `n` lookups, launched one after the other on `stream`, each as
+// cuembed_fixed_forward launches it. `desc` holds n descriptors of
+// kFixedDescWords int64 words (ops/cuda_forward.py::pack_fixed_many):
+//   0-3   table, indices, weights (0: none), out
+//   4-7   num_rows, batch, hotness, width
+//   8-9   index_bytes, vec_bytes
+//   10-13 dtype, low_precision_math, the bits of the float mean_scale, mean
+//   14-19 the launch plan as launch_plan returns it: lanes, slabs, threads,
+//         items_per_block, blocks (checked against the others), smem_bytes
+// Returns the first error (0 when every launch succeeded); the lookups after
+// it are not launched.
+int cuembed_fixed_forward_many(const int64_t* desc, int n, void* stream) {
+  for (int i = 0; i < n; ++i) {
+    const int64_t* d = desc + static_cast<int64_t>(i) * cuembed::kFixedDescWords;
+    if (d[17] < 1 || d[18] != (d[5] * d[15] + d[17] - 1) / d[17])
+      return static_cast<int>(cudaErrorInvalidValue);
+    const uint32_t bits = static_cast<uint32_t>(d[12]);
+    float mean_scale;
+    std::memcpy(&mean_scale, &bits, sizeof(mean_scale));
+    const int err = cuembed_fixed_forward(
+        reinterpret_cast<const void*>(d[0]), reinterpret_cast<const void*>(d[1]),
+        reinterpret_cast<const void*>(d[2]), reinterpret_cast<void*>(d[3]), d[4], d[5], d[6],
+        d[7], static_cast<int>(d[10]), static_cast<int>(d[8]), static_cast<int>(d[11]),
+        static_cast<int>(d[9]), mean_scale, static_cast<int>(d[13]), static_cast<int>(d[14]),
+        static_cast<int>(d[15]), d[17], static_cast<int>(d[16]), static_cast<int>(d[19]),
+        stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 int cuembed_csr_forward(const void* table, const void* indices, const void* offsets,

@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
         ptr,  # stream
     ]
     lib.cuembed_fixed_forward.restype = i32
+    lib.cuembed_fixed_forward_many.argtypes = [ptr, i32, ptr]  # descriptors, n, stream
+    lib.cuembed_fixed_forward_many.restype = i32
     lib.cuembed_csr_forward.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # table, indices, offsets, weights, out
         i64, i64, i64, i64,  # num_rows, batch, capacity, width

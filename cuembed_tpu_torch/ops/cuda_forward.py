@@ -7,6 +7,10 @@
 * :func:`embedding_forward_cuda_csr` runs K2, the ragged CSR combine
   (``csrc/forward.cu::csr_forward_kernel``, which replaces
   ``pallas_forward.py::_make_csr_fwd_kernel``).
+* :func:`embedding_forward_cuda_many` runs K1 for many fixed-hotness lookups
+  in one host pass and one call into the library, which launches each
+  lookup's K1 as :func:`embedding_forward_cuda` would
+  (``EmbeddingCollection.apply``'s route on the card).
 
 Each wrapper checks its inputs, then computes with the plain PyTorch
 version (:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU,
@@ -14,11 +18,15 @@ and launches its kernel for tensors on a CUDA device, on the current
 stream, as :func:`launch_plan` lays it out. A kernel that fails to build or
 launch raises; nothing falls back. Each launch is counted
 (``trace.counters()``'s ``launch.k1``, ``launch.k2``) and, while a profiler
-records, spanned (``cuembed::launch.k1``, ``cuembed::launch.k2``).
+records, spanned (``cuembed::launch.k1``, ``cuembed::launch.k2``); a batched
+call is counted as ``launch.k1_batch`` besides and spanned
+``cuembed::launch.k1_batch`` once.
 """
 
 from __future__ import annotations
 
+import functools
+import struct
 from typing import NamedTuple
 
 import torch
@@ -33,6 +41,7 @@ from cuembed_tpu_torch.types import (
     STORAGE_DTYPES,
     CombineMode,
     accumulation_dtype,
+    check_index_dtype,
 )
 from cuembed_tpu_torch.utils import trace
 
@@ -149,12 +158,16 @@ def _check_placement(tensors):
 def _vec_bytes(width: int, itemsize: int, *tensors) -> int:
     """The widest load (16 or 8 bytes, else one element) that divides the
     row stride and every data pointer."""
-    for vec in (16, 8):
-        if (width * itemsize) % vec == 0 and all(
-            t.data_ptr() % vec == 0 for t in tensors
-        ):
-            return vec
-    return itemsize
+    bits = width * itemsize
+    for t in tensors:
+        bits |= t.data_ptr()
+    return _vec_of(bits, itemsize)
+
+
+def _vec_of(bits: int, itemsize: int) -> int:
+    """:func:`_vec_bytes` of the row stride and pointers OR-ed into ``bits``:
+    a power of two divides them all where it divides that."""
+    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else itemsize
 
 
 def _raise_on_error(err: int, name: str):
@@ -294,3 +307,124 @@ def embedding_forward_cuda_csr(
             trace.end(span)
     trace.COUNTS["launch.k2"] += 1
     return out
+
+
+# int64 words of one K1 descriptor (csrc/forward.cu::cuembed_fixed_forward_many).
+FIXED_DESC_WORDS = 20
+
+
+@functools.lru_cache(maxsize=4096)
+def fixed_plan(nvec: int, batch: int, weighted: bool) -> LaunchPlan:
+    """K1's :func:`launch_plan`, cached: a plan depends on nothing else."""
+    return launch_plan(nvec, batch, csr=False, weighted=weighted)
+
+
+@functools.lru_cache(maxsize=1024)
+def _fixed_words(dtype: torch.dtype, low_precision_math: bool, hotness: int,
+                 mean: bool) -> tuple:
+    """Words 10-13 of a K1 descriptor: the dtype code, low-precision math,
+    the bits of the C float MEAN scales by (its rounded 1/hotness, else 1),
+    and MEAN."""
+    acc_dt = accumulation_dtype(dtype, low_precision_math)
+    scale = rounded_reciprocal(hotness, acc_dt) if mean else 1.0
+    return (_DTYPE_CODE[dtype], int(acc_dt != torch.float32),
+            struct.unpack("<I", struct.pack("<f", scale))[0], int(mean))
+
+
+# Bytes of an element of each table and index dtype.
+_ITEMSIZE = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2, torch.int32: 4,
+             torch.int64: 8}
+
+
+def _lookup_error(table, indices, weights, mode):
+    """Raise the error that the per-table route raises for a lookup that
+    :func:`pack_fixed_many`'s checks refused: its checks, in its order."""
+    from cuembed_tpu_torch.ops.api import _validate  # api imports this module
+
+    check_index_dtype(indices.dtype)
+    _validate(table, indices, None, weights, mode)
+    _check_common(table, indices, weights, mode)
+    _check_placement([table, indices] + ([] if weights is None else [weights]))
+
+
+def pack_fixed_many(tables, indices, weights, modes, *, low_precision_math=False):
+    """The host pass of :func:`embedding_forward_cuda_many`, which launches
+    nothing: each lookup's checks, which refuse what the per-table route
+    (:func:`~cuembed_tpu_torch.ops.api.embedding_lookup`, then
+    :func:`embedding_forward_cuda`) refuses, with its errors; one output
+    buffer for the lookups that share (batch, width, dtype, device), each
+    lookup's ``[batch, width]`` output a view of it; and the words of the K1
+    descriptors, by device, of the lookups that have work
+    (``FIXED_DESC_WORDS`` each, in
+    ``csrc/forward.cu::cuembed_fixed_forward_many``'s order). Returns
+    ``(outputs, {device: words})``."""
+    looks, groups = [], {}
+    for table, idx, w, mode in zip(tables, indices, weights, modes):
+        table, idx = table.contiguous(), idx.contiguous()
+        if w is not None:
+            w = w.to(torch.float32).contiguous()
+        tshape, ishape, dtype, device = table.shape, idx.shape, table.dtype, table.device
+        if (dtype not in STORAGE_DTYPES or idx.dtype not in INDEX_DTYPES
+                or len(tshape) != 2 or len(ishape) != 2 or idx.device != device
+                or mode == CombineMode.CONCAT
+                or (w is not None and (mode != CombineMode.SUM or w.shape != ishape
+                                       or w.device != device))):
+            _lookup_error(table, idx, w, mode)
+        key = (ishape[0], tshape[1], dtype, device)
+        groups.setdefault(key, []).append(len(looks))
+        looks.append((table, idx, w, mode == CombineMode.MEAN, tshape[0], ishape[1], key))
+    outs, out_ptrs = [None] * len(looks), [0] * len(looks)
+    for (batch, width, dtype, device), members in groups.items():
+        buf = torch.empty((len(members), batch, width), dtype=dtype, device=device)
+        ptr, step = buf.data_ptr(), batch * width * _ITEMSIZE[dtype]
+        for k, (i, out) in enumerate(zip(members, buf.unbind(0))):
+            outs[i], out_ptrs[i] = out, ptr + k * step
+    descs = {}
+    for (table, idx, w, mean, num_rows, hotness, (batch, width, dtype, device)), op in zip(
+            looks, out_ptrs):
+        if batch == 0 or width == 0:
+            continue
+        itemsize, tp = _ITEMSIZE[dtype], table.data_ptr()
+        vec = _vec_of(width * itemsize | tp | op, itemsize)
+        words = descs.get(device)
+        if words is None:
+            words = descs[device] = []
+        words += (tp, idx.data_ptr(), 0 if w is None else w.data_ptr(), op,
+                  num_rows, batch, hotness, width, _ITEMSIZE[idx.dtype], vec,
+                  *_fixed_words(dtype, low_precision_math, hotness, mean),
+                  *fixed_plan(width * itemsize // vec, batch, w is not None))
+    return outs, descs
+
+
+def embedding_forward_cuda_many(tables, indices, weights, modes, *,
+                                low_precision_math=False) -> list:
+    """Fixed-hotness forwards on K1, many at once: lookup ``i`` is
+    ``embedding_forward_cuda(tables[i], indices[i], weights[i],
+    mode=modes[i], low_precision_math=low_precision_math)``, bit for bit,
+    on CUDA tensors (the same K1 launch with the same arguments). One host
+    pass checks every lookup and packs its descriptor
+    (:func:`pack_fixed_many`), and one call into the library per device
+    launches them in turn on that device's current stream. Lookups that
+    share (batch, width, dtype, device) return views of one buffer.
+
+    Returns:
+      each lookup's ``[batch, width]`` output in the table's dtype, in order.
+    """
+    outs, descs = pack_fixed_many(tables, indices, weights, modes,
+                                  low_precision_math=low_precision_math)
+    for device, words in descs.items():
+        span = (trace.begin("launch.k1_batch")
+                if trace.torch_profiler._is_profiler_enabled else None)
+        try:
+            lib = _build.load_library()
+            with torch.cuda.device(device):
+                err = lib.cuembed_fixed_forward_many(
+                    struct.pack(f"{len(words)}q", *words), len(words) // FIXED_DESC_WORDS,
+                    torch.cuda.current_stream().cuda_stream)
+            _raise_on_error(err, "fixed_forward_kernel")
+        finally:
+            if span is not None:
+                trace.end(span)
+        trace.COUNTS["launch.k1"] += len(words) // FIXED_DESC_WORDS
+        trace.COUNTS["launch.k1_batch"] += 1
+    return outs

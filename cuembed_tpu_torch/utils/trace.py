@@ -35,6 +35,11 @@ The spans, from the entry point down:
 * ``dispatch.forward``, ``dispatch.backward_compressed``: the routing.
 * ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k4``: a kernel's
   launch plan, the ctypes call and its error check.
+* ``launch.k1_batch``: the one ctypes call that launches K1 for every lookup
+  of a batched forward (``cuda_forward.embedding_forward_cuda_many``, the
+  route of ``collection.apply`` for its tables on the card that need no
+  gradient), and its error check. The lookups it serves make no
+  ``api.lookup``, ``dispatch.forward`` or ``launch.k1`` span.
 * ``train.row_sums``, ``train.adagrad``: a row-wise AdaGrad update's
   per-row gradient sums and its update of the touched rows (K4).
 * ``wait.<site>``: a read on the host of a size or mask that the device
@@ -47,7 +52,10 @@ compare two snapshots for the counts in between. There is no reset.
 
 * ``launch.k1``, ``launch.k2``, ``launch.k3_full``, ``launch.k3_compressed``,
   ``launch.k4``: kernel launches (a CUDA graph counts its captures, not its
-  replays);
+  replays), the batched forward's K1 launches among them;
+* ``launch.k1_batch``: calls of the batched forward into the library;
+* ``collection.batched_tables``: tables that ``EmbeddingCollection.apply``
+  served by the batched forward;
 * ``wait.num_unique``, ``wait.keep_mask``: the host reads of :func:`wait`
   (SGD's and Adam's updates; row-wise AdaGrad's makes none);
 * ``build``: compiles of the library in this process (a process that only
@@ -65,7 +73,8 @@ PREFIX = "cuembed::"
 
 COUNTS = dict.fromkeys(
     ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed", "launch.k4",
-     "wait.num_unique", "wait.keep_mask", "build"), 0)
+     "launch.k1_batch", "collection.batched_tables", "wait.num_unique", "wait.keep_mask",
+     "build"), 0)
 _OFF = contextlib.nullcontext()
 
 

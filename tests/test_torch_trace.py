@@ -131,7 +131,8 @@ def test_adagrad_update_waits_for_nothing(traced):
 def test_counters_are_snapshots():
     c = trace.counters()
     assert set(c) == {"launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed",
-                      "launch.k4", "wait.num_unique", "wait.keep_mask", "build"}
+                      "launch.k4", "launch.k1_batch", "collection.batched_tables",
+                      "wait.num_unique", "wait.keep_mask", "build"}
     c["wait.num_unique"] += 100
     assert trace.counters()["wait.num_unique"] == c["wait.num_unique"] - 100
 
@@ -202,9 +203,12 @@ K4 = ("rowwise_adagrad_apply_kernel",)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("launch,kernels", [("launch.k1", K1), ("launch.k3", K3),
-                                            ("launch.k4", K4)], ids=["k1", "k3", "k4"])
-def test_kernels_link_to_their_launch_span(card, launch, kernels):
+@pytest.mark.parametrize("launch,kernels,spans", [
+    ("launch.k1_batch", K1, 1), ("launch.k3", K3, TABLES), ("launch.k4", K4, TABLES)],
+    ids=["k1", "k3", "k4"])
+def test_kernels_link_to_their_launch_span(card, launch, kernels, spans):
+    """On the card the collection's lookups take the batched forward: every
+    table's K1 links to its one ``launch.k1_batch`` span."""
     problem = _problem(card)
     _step(*problem)  # the library loaded outside the trace
     torch.cuda.synchronize()
@@ -212,10 +216,10 @@ def test_kernels_link_to_their_launch_span(card, launch, kernels):
         _step(*problem)
         torch.cuda.synchronize()
     events = reduce(prof.profiler.kineto_results.events())
-    spans = {c for n, _, _, c in events.ops if n == trace.PREFIX + launch}
+    linked = {c for n, _, _, c in events.ops if n == trace.PREFIX + launch}
     mine = [d for d in events.device if any(k in d[0] for k in kernels)]
-    assert len(spans) == TABLES and mine
-    assert {d[3] for d in mine} == spans
+    assert len(linked) == spans and mine
+    assert {d[3] for d in mine} == linked
     # the spans draw nothing on the device's timeline
     names = {n for n, *_ in events.ops if n.startswith(trace.PREFIX)}
     assert names and not [d for d in events.device if d[0] in names]
