@@ -616,8 +616,9 @@ def phase_edges():
             t = torch.randint(-vmax, vmax + 1, (rows * width + shift,), device="cuda",
                               generator=gen).to(dtype)
             view = t[shift:].view(rows, width)
-            loads.add(cuda_forward._vec_bytes(width, view.element_size(), view,
-                                              torch.empty_like(view[:1])))
+            size = view.element_size()
+            loads.add(cuda_forward._vec_bytes(
+                width * size | view.data_ptr() | torch.empty_like(view[:1]).data_ptr(), size))
             return view
         check("hotness 0", table_of(40, 256), torch.zeros((9, 0), dtype=torch.int64,
                                                          device="cuda"), None, lpm,

@@ -10,9 +10,10 @@ A set of named embedding tables managed together:
   table and its id->row remap without changing lookup results; the reorder
   gathers on the tables' device);
 * collection-wide forward (:meth:`EmbeddingCollection.apply`, one K1 or K2
-  launch a table on the card; the tables that :func:`batched_route` admits
-  take one host pass and one call into the library for all their K1
-  launches) and row-sparse training updates
+  launch a table on the card; its fixed-hotness tables go to
+  ``embedding_lookup_many`` together, which serves those on the card that
+  need no gradient in one host pass and one call into the library) and
+  row-sparse training updates
   (:meth:`~EmbeddingCollection.sgd_update`,
   :meth:`~EmbeddingCollection.adagrad_update`, K3 in compressed mode a
   table) built on :mod:`cuembed_tpu_torch.train`, which update the tables
@@ -35,8 +36,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cuembed_tpu_torch.ops import cuda_forward
-from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
+from cuembed_tpu_torch.ops.api import (
+    embedding_lookup,
+    embedding_lookup_csr,
+    embedding_lookup_many,
+)
 from cuembed_tpu_torch.ops.tiered import DEFAULT_HOT_BYTES, TieredConfig, auto_config
 from cuembed_tpu_torch.table import host_array
 from cuembed_tpu_torch.train import (
@@ -55,20 +59,6 @@ LANES = 128
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
-
-
-def batched_route(table, indices, weights, offsets, mode, grad: bool) -> bool:
-    """Whether :meth:`EmbeddingCollection.apply` serves a table by the
-    batched K1 forward (``cuda_forward.embedding_forward_cuda_many``) when
-    the call is untiered with backend ``"auto"`` or ``"pallas"``: fixed
-    hotness, SUM or MEAN, table and indices on CUDA, and no gradient to take
-    (``grad``, the grad mode, off, or neither the table nor the weights
-    requiring one). The results are those of the per-table route, bit for
-    bit; every other table takes that route."""
-    return (offsets is None and mode != CombineMode.CONCAT and table.is_cuda
-            and indices.is_cuda
-            and not (grad and (table.requires_grad
-                               or (weights is not None and weights.requires_grad))))
 
 
 @dataclass(frozen=True)
@@ -288,37 +278,32 @@ class EmbeddingCollection:
         """Pooled lookup for every table present in ``indices``.
 
         ``tiered=True`` passes each table's tiered config
-        (``backend="tiered"``): the same results, on the same kernels. The
-        tables that :func:`batched_route` admits are served together, their
-        outputs views of shared buffers; the others one at a time through
-        ``embedding_lookup`` / ``embedding_lookup_csr``.
+        (``backend="tiered"``): the same results, on the same kernels, one
+        table at a time through ``embedding_lookup`` /
+        ``embedding_lookup_csr``. Untiered, the fixed-hotness tables go to
+        ``embedding_lookup_many`` in one call (where they share (batch,
+        width, dtype) on the card, their outputs are views of one buffer),
+        the CSR tables one at a time.
         """
         span = (trace.begin("collection.apply")
                 if trace.torch_profiler._is_profiler_enabled else None)
         try:
-            batched = []
-            if not tiered and backend in ("auto", "pallas"):
-                grad, configs = torch.is_grad_enabled(), self.configs
-                weight, offset = (weights or {}).get, (offsets or {}).get
-                for name, idx in indices.items():
-                    table, w, mode = tables[name], weight(name), configs[name].mode
-                    if batched_route(table, idx, w, offset(name), mode, grad):
-                        batched.append((name, table, idx, w, mode))
-            pooled = {}
-            if batched:
-                names, *lookups = zip(*batched)
-                pooled = dict(zip(names, cuda_forward.embedding_forward_cuda_many(*lookups)))
-                trace.COUNTS["collection.batched_tables"] += len(names)
-                if len(names) == len(indices):
-                    return pooled
-            return {
-                name: pooled[name] if name in pooled else
-                self._lookup(name, tables[name], idx,
-                             weights.get(name) if weights else None,
-                             offsets.get(name) if offsets else None,
-                             backend, tiered)
-                for name, idx in indices.items()
-            }
+            configs, weight, offset = self.configs, (weights or {}).get, (offsets or {}).get
+            fixed, pooled = [], {}
+            for name, idx in indices.items():
+                off = offset(name)
+                if off is None and not tiered:
+                    fixed.append((name, tables[name], idx, weight(name), configs[name].mode))
+                else:
+                    pooled[name] = self._lookup(name, tables[name], idx, weight(name), off,
+                                                backend, tiered)
+            if fixed:
+                names, *lookups = zip(*fixed)
+                outs = dict(zip(names, embedding_lookup_many(*lookups, backend=backend)))
+                if not pooled:
+                    return outs
+                pooled.update(outs)
+            return {name: pooled[name] for name in indices}
         finally:
             if span is not None:
                 trace.end(span)

@@ -9,6 +9,7 @@ library's name carries a hash of the sources, the shared header and the
 flags, so a stale library is never loaded. A failed build raises with
 nvcc's output. The log beside the library ends with each ``nvcc``'s wall
 time and the build's.
+Every kernel wrapper (K1-K4) launches through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 from cuembed_tpu_torch.utils import trace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -36,6 +39,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Storage dtype -> the kernels' dtype code.
+DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# Sorted positions of a K3 tile (``kTile`` in ``csrc/backward.cu``), for which
+# K3's wrapper sizes its scratch; the library is checked against it when it loads.
+K3_TILE = 256
 
 
 def find_nvcc() -> str:
@@ -119,20 +127,12 @@ def _compile(path: Path):
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the library, with its C signatures."""
+    """Build (if needed) and load the library, with its C signatures; raise
+    unless its K3 tile is :data:`K3_TILE`."""
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     # The launch plan: lanes, slabs, items_per_block, threads, smem_bytes.
     plan = [i32, i32, i64, i32, i32]
-    lib.cuembed_fixed_forward.argtypes = [
-        ptr, ptr, ptr, ptr,  # table, indices, weights, out
-        i64, i64, i64, i64,  # num_rows, batch, hotness, width
-        i32, i32, i32, i32,  # dtype, index_bytes, low_precision_math, vec_bytes
-        ctypes.c_float, i32,  # mean_scale, mean
-        *plan,
-        ptr,  # stream
-    ]
-    lib.cuembed_fixed_forward.restype = i32
     lib.cuembed_fixed_forward_many.argtypes = [ptr, i32, ptr]  # descriptors, n, stream
     lib.cuembed_fixed_forward_many.restype = i32
     lib.cuembed_csr_forward.argtypes = [
@@ -180,4 +180,44 @@ def load_library() -> ctypes.CDLL:
         ptr,  # shape: int64[4]
     ]
     lib.cuembed_rowwise_adagrad_apply_shape.restype = i32
+    if lib.cuembed_coo_backward_tile() != K3_TILE:
+        raise RuntimeError(f"K3 was built for tiles of {lib.cuembed_coo_backward_tile()} "
+                           f"positions, its wrapper sizes its scratch for {K3_TILE}")
     return lib
+
+
+def check_placement(tensors) -> bool:
+    """Same device for all, contiguous; True if that device is CUDA."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"all inputs must be on {device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device: {device}")
+    return device.type == "cuda"
+
+
+def raise_on_error(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
+
+
+def launch(entry: str, args, *, device, kernel: str, span: str, counter: str,
+           count: int = 1):
+    """Call the library's ``entry(*args, stream)`` with ``device`` current, on
+    its current stream; raise naming ``kernel`` if the launch failed; count
+    ``count`` launches in ``counter``. The span ``cuembed::<span>`` covers the
+    call and its check while a profiler records (opened by hand, as
+    :mod:`~cuembed_tpu_torch.utils.trace` sets out)."""
+    opened = (trace.begin(span) if trace.torch_profiler._is_profiler_enabled else None)
+    try:
+        with torch.cuda.device(device):
+            err = getattr(load_library(), entry)(*args,
+                                                 torch.cuda.current_stream().cuda_stream)
+        raise_on_error(err, kernel)
+    finally:
+        if opened is not None:
+            trace.end(opened)
+    trace.COUNTS[counter] += count

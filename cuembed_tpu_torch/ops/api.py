@@ -13,6 +13,8 @@ and a sum of the rest (kept as
 gradient more slowly on the card. A CSR config's ``csr_live_cap`` bounds the
 plain version's live entries. Gradients flow to the table and to the
 per-lookup weights; indices and offsets have none.
+
+This module alone decides whether a lookup needs autograd.
 """
 
 from __future__ import annotations
@@ -71,6 +73,38 @@ def embedding_lookup(
     finally:
         if span is not None:
             trace.end(span)
+
+
+def embedding_lookup_many(tables, indices, weights, modes, *, backend: str = "auto") -> list:
+    """Fixed-hotness lookups, the list form: result ``i`` is
+    ``embedding_lookup(tables[i], indices[i], weights[i], mode=modes[i],
+    backend=backend)``, bit for bit.
+
+    The lookups that autograd does not need (grad mode off, or neither the
+    table nor the weights requiring a gradient) go to
+    ``dispatch.forward_many`` in one call, and those it serves open no
+    ``api.lookup`` span; where the call's lookups on the card share (batch,
+    width, dtype), their results are views of one buffer. Every other
+    lookup, and every one the layers below refuse (on the CPU, CONCAT, under
+    a backend without kernels, or inputs whose checks raise), goes through
+    :func:`embedding_lookup` itself, which serves it or raises its error.
+    """
+    grad = torch.is_grad_enabled()
+    if not (grad and any(t.requires_grad or (w is not None and w.requires_grad)
+                         for t, w in zip(tables, weights))):
+        outs = dispatch.forward_many(tables, indices, weights, modes, backend=backend)
+    else:
+        free = [k for k, (t, w) in enumerate(zip(tables, weights))
+                if not (t.requires_grad or (w is not None and w.requires_grad))]
+        outs = [None] * len(tables)
+        for k, out in zip(free, dispatch.forward_many(
+                *([seq[k] for k in free] for seq in (tables, indices, weights, modes)),
+                backend=backend)):
+            outs[k] = out
+    if all(out is not None for out in outs):
+        return outs
+    return [embedding_lookup(t, i, w, mode=m, backend=backend) if out is None else out
+            for out, t, i, w, m in zip(outs, tables, indices, weights, modes)]
 
 
 def embedding_lookup_csr(

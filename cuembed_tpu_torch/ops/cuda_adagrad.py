@@ -15,7 +15,7 @@ applies the step with XLA gathers and scatters (``cuembed_tpu/train.py``,
   a CUDA device, on the current stream. A kernel that fails to build or
   launch raises; nothing falls back. Each launch is counted
   (``trace.counters()``'s ``launch.k4``) and, while a profiler records,
-  spanned (``cuembed::launch.k4``).
+  spanned (``cuembed::launch.k4``), by ``_build.launch``.
 
 Both update each rank ``r < min(num_unique, capacity)`` whose index ``u``
 lies in ``[0, num_rows)``, and nothing else::
@@ -34,14 +34,8 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.ops import _build
-from cuembed_tpu_torch.ops.cuda_forward import (
-    _DTYPE_CODE,
-    _check_placement,
-    _raise_on_error,
-)
 from cuembed_tpu_torch.ops.lookup_torch import CompressedGrad
 from cuembed_tpu_torch.types import INDEX_DTYPES, STORAGE_DTYPES
-from cuembed_tpu_torch.utils import trace
 
 
 def _check(table, accum, cg):
@@ -80,8 +74,8 @@ def launch_shape(dtype: torch.dtype, width: int, *, index_bytes: int = 8,
     flight, and register chunks of a row (0: two passes over the gradient)."""
     shape = torch.zeros(4, dtype=torch.int64)
     err = _build.load_library().cuembed_rowwise_adagrad_apply_shape(
-        width, _DTYPE_CODE[dtype], index_bytes, vec, shape.data_ptr())
-    _raise_on_error(err, "rowwise_adagrad_apply_kernel")
+        width, _build.DTYPE_CODE[dtype], index_bytes, vec, shape.data_ptr())
+    _build.raise_on_error(err, "rowwise_adagrad_apply_kernel")
     threads, blocks, rows, chunks = shape.tolist()
     return {"threads": threads, "blocks_per_sm": blocks, "rows_in_flight": rows,
             "chunks": chunks}
@@ -123,18 +117,16 @@ def rowwise_adagrad_apply_cuda(table: torch.Tensor, accum: torch.Tensor,
     """
     _check(table, accum, cg)
     rows, uniq, num_unique = cg
-    if not _check_placement([table, accum, rows, uniq, num_unique]):
+    if not _build.check_placement([table, accum, rows, uniq, num_unique]):
         return rowwise_adagrad_apply_torch(table, accum, cg, lr=lr, eps=eps)
     if rows.shape[0] == 0:
         return table, accum
-    with trace.span("launch.k4"):
-        with torch.cuda.device(table.device):
-            err = _build.load_library().cuembed_rowwise_adagrad_apply(
-                rows.data_ptr(), uniq.data_ptr(), num_unique.data_ptr(), table.data_ptr(),
-                accum.data_ptr(), rows.shape[0], table.shape[0], table.shape[1],
-                _DTYPE_CODE[table.dtype], uniq.element_size(), _vec_elems(table, rows),
-                lr, eps, torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(err, "rowwise_adagrad_apply_kernel")
-    trace.COUNTS["launch.k4"] += 1
+    _build.launch(
+        "cuembed_rowwise_adagrad_apply",
+        (rows.data_ptr(), uniq.data_ptr(), num_unique.data_ptr(), table.data_ptr(),
+         accum.data_ptr(), rows.shape[0], table.shape[0], table.shape[1],
+         _build.DTYPE_CODE[table.dtype], uniq.element_size(), _vec_elems(table, rows),
+         lr, eps),
+        device=table.device, kernel="rowwise_adagrad_apply_kernel", span="launch.k4",
+        counter="launch.k4")
     return table, accum

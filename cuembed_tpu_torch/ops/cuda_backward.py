@@ -13,7 +13,7 @@ launches K3 for tensors on a CUDA device, on the current stream. A kernel
 that fails to build or launch raises; nothing falls back. Each launch is
 counted (``trace.counters()``'s ``launch.k3_full``,
 ``launch.k3_compressed``) and, while a profiler records, spanned
-(``cuembed::launch.k3``).
+(``cuembed::launch.k3``), by ``_build.launch``.
 
 K3 sums each run in fp32 in position order, and the output rounds once to
 ``grad_y``'s dtype; the plain version adds position by position in
@@ -27,22 +27,17 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.ops import _build
-from cuembed_tpu_torch.ops.cuda_forward import (
-    _DTYPE_CODE,
-    _check_placement,
-    _raise_on_error,
-)
 from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
     embedding_backward_compressed_torch,
     embedding_backward_torch,
 )
 from cuembed_tpu_torch.types import INDEX_DTYPES, STORAGE_DTYPES
-from cuembed_tpu_torch.utils import trace
 
 # Sorted positions per tile: one block stages a tile's COO in shared memory
-# and sums its runs (``kTile`` in ``csrc/backward.cu``).
-TILE = 256
+# and sums its runs (``kTile`` in ``csrc/backward.cu``, checked when the
+# library loads).
+TILE = _build.K3_TILE
 # The copy route of each row vector width: one bulk copy per row slice
 # (16 bytes), cp.async of each column vector (8, 4 bytes), plain loads (2).
 ROUTES = {16: "bulk", 8: "cp.async 8 B", 4: "cp.async 4 B", 2: "plain 2 B"}
@@ -81,9 +76,9 @@ def launch_shape(dtype: torch.dtype, width: int, *, index_bytes: int = 8,
     the current card, and column slices a row (one block each)."""
     shape = torch.zeros(4, dtype=torch.int64)
     err = _build.load_library().cuembed_coo_backward_shape(
-        width, _DTYPE_CODE[dtype], index_bytes, int(weighted), vec, int(compressed),
+        width, _build.DTYPE_CODE[dtype], index_bytes, int(weighted), vec, int(compressed),
         int(zeroed), shape.data_ptr())
-    _raise_on_error(err, "coo_backward_kernel")
+    _build.raise_on_error(err, "coo_backward_kernel")
     smem, threads, blocks, slices = shape.tolist()
     return {"smem_bytes": smem, "threads": threads, "blocks_per_sm": blocks,
             "slices": slices}
@@ -98,39 +93,31 @@ def _launch(grad_y, t_idx, t_sid, t_w, out, uniq, live, num_rows, compressed,
     """K3 over the first ``live`` sorted positions; returns num_unique (a
     0-dim int64 tensor) in compressed mode. ``zeroed``: full mode into an
     output this module zeroed, whose old rows K3 need not read."""
-    with trace.span("launch.k3"):
-        width = grad_y.shape[1]
-        num_tiles = -(-live // TILE)
-        device = grad_y.device
-        head = torch.empty((num_tiles, width), dtype=torch.float32, device=device)
-        tail = torch.empty_like(head)
-        ranks = tail_rank = num_unique = None
-        if compressed:
-            ranks = torch.empty(num_tiles, dtype=torch.int64, device=device)
-            tail_rank = torch.empty_like(ranks)
-            num_unique = torch.empty((), dtype=torch.int64, device=device)
-        t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
-        lib = _build.load_library()
-        if lib.cuembed_coo_backward_tile() != TILE:
-            raise RuntimeError(f"K3 was built for tiles of "
-                               f"{lib.cuembed_coo_backward_tile()} positions, the "
-                               f"wrapper sizes its scratch for {TILE}")
+    width = grad_y.shape[1]
+    num_tiles = -(-live // TILE)
+    device = grad_y.device
+    head = torch.empty((num_tiles, width), dtype=torch.float32, device=device)
+    tail = torch.empty_like(head)
+    ranks = tail_rank = num_unique = None
+    if compressed:
+        ranks = torch.empty(num_tiles, dtype=torch.int64, device=device)
+        tail_rank = torch.empty_like(ranks)
+        num_unique = torch.empty((), dtype=torch.int64, device=device)
+    t_sid = t_sid if t_sid.dtype == torch.int32 else t_sid.to(torch.int32)
 
-        def ptr(t):
-            return None if t is None else t.data_ptr()
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
-        with torch.cuda.device(device):
-            err = lib.cuembed_coo_backward(
-                grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
-                out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
-                ptr(ranks), ptr(tail_rank), ptr(num_unique),
-                num_rows, grad_y.shape[0], live, width,
-                _DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
-                vec_bytes(grad_y, out), int(compressed), int(zeroed),
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(err, "coo_backward_kernel")
-    trace.COUNTS["launch.k3_compressed" if compressed else "launch.k3_full"] += 1
+    _build.launch(
+        "cuembed_coo_backward",
+        (grad_y.data_ptr(), t_idx.data_ptr(), t_sid.data_ptr(), ptr(t_w),
+         out.data_ptr(), ptr(uniq), head.data_ptr(), tail.data_ptr(),
+         ptr(ranks), ptr(tail_rank), ptr(num_unique),
+         num_rows, grad_y.shape[0], live, width,
+         _build.DTYPE_CODE[grad_y.dtype], t_idx.element_size(),
+         vec_bytes(grad_y, out), int(compressed), int(zeroed)),
+        device=device, kernel="coo_backward_kernel", span="launch.k3",
+        counter="launch.k3_compressed" if compressed else "launch.k3_full")
     return num_unique
 
 
@@ -163,7 +150,7 @@ def embedding_backward_cuda(
     tensors = [grad_y, transpose_indices, transpose_sample_ids] + [
         t for t in (transpose_weights, initial_grad) if t is not None
     ]
-    if not _check_placement(tensors):
+    if not _build.check_placement(tensors):
         return embedding_backward_torch(
             grad_y, num_categories, transpose_indices, transpose_sample_ids,
             transpose_weights, nnz=nnz, initial_grad=initial_grad, live_cap=live_cap,
@@ -205,7 +192,7 @@ def embedding_backward_cuda_compressed(
                          f"[{cap}] of {transpose_indices.dtype} indices")
     tensors = [grad_y, transpose_indices, transpose_sample_ids] + [
         t for t in (transpose_weights, *(out or ())) if t is not None]
-    if not _check_placement(tensors):
+    if not _build.check_placement(tensors):
         return embedding_backward_compressed_torch(
             grad_y, transpose_indices, transpose_sample_ids, transpose_weights,
             nnz=nnz, live_cap=live_cap, out=out,

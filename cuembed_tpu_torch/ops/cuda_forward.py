@@ -1,26 +1,26 @@
 """Forward lookups on the hand-written Hopper kernels, the counterpart of
 ``cuembed_tpu/ops/pallas_forward.py``.
 
-* :func:`embedding_forward_cuda` runs K1, the fixed-hotness gather-reduce
-  (``csrc/forward.cu::fixed_forward_kernel``, which replaces
-  ``pallas_forward.py::_make_fwd_kernel``).
+* :func:`embedding_forward_cuda_many` runs K1, the fixed-hotness
+  gather-reduce (``csrc/forward.cu::fixed_forward_kernel``, which replaces
+  ``pallas_forward.py::_make_fwd_kernel``), for a list of lookups: one host
+  pass checks, plans and packs them (:func:`pack_fixed_many`), and one call
+  into the library a device (``cuembed_fixed_forward_many``) launches each
+  lookup's K1. :func:`embedding_forward_cuda` is that path with one lookup.
 * :func:`embedding_forward_cuda_csr` runs K2, the ragged CSR combine
   (``csrc/forward.cu::csr_forward_kernel``, which replaces
   ``pallas_forward.py::_make_csr_fwd_kernel``).
-* :func:`embedding_forward_cuda_many` runs K1 for many fixed-hotness lookups
-  in one host pass and one call into the library, which launches each
-  lookup's K1 as :func:`embedding_forward_cuda` would
-  (``EmbeddingCollection.apply``'s route on the card).
 
 Each wrapper checks its inputs, then computes with the plain PyTorch
 version (:mod:`cuembed_tpu_torch.ops.lookup_torch`) for tensors on the CPU,
 and launches its kernel for tensors on a CUDA device, on the current
-stream, as :func:`launch_plan` lays it out. A kernel that fails to build or
-launch raises; nothing falls back. Each launch is counted
-(``trace.counters()``'s ``launch.k1``, ``launch.k2``) and, while a profiler
-records, spanned (``cuembed::launch.k1``, ``cuembed::launch.k2``); a batched
-call is counted as ``launch.k1_batch`` besides and spanned
-``cuembed::launch.k1_batch`` once.
+stream, as :func:`launch_plan` lays it out (``_build.launch``). A kernel
+that fails to build or launch raises; nothing falls back. Each launch is
+counted (``trace.counters()``'s ``launch.k1``, ``launch.k2``) and, while a
+profiler records, spanned (``cuembed::launch.k1``, ``cuembed::launch.k2``);
+a call of the list form into the library is counted as ``launch.k1_batch``
+besides and spanned ``cuembed::launch.k1_batch``, and the lookups the list
+form serves as ``collection.batched_tables``.
 """
 
 from __future__ import annotations
@@ -41,12 +41,8 @@ from cuembed_tpu_torch.types import (
     STORAGE_DTYPES,
     CombineMode,
     accumulation_dtype,
-    check_index_dtype,
 )
 from cuembed_tpu_torch.utils import trace
-
-# Storage dtype -> the kernels' dtype code.
-_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # The launch plan (tools/fwd_sweep.py times others): warps a block of K1
 # and of K2; and work items each worker of a block takes, in turn, from the
@@ -72,9 +68,10 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory a block
 
 
-def launch_plan(nvec: int, batch: int, *, csr: bool, weighted: bool) -> LaunchPlan:
+@functools.lru_cache(maxsize=4096)
+def launch_plan(nvec: int, batch: int, csr: bool, weighted: bool) -> LaunchPlan:
     """The launch of K1 (``csr=False``) or K2 over ``batch`` bags of rows of
-    ``nvec`` column vectors.
+    ``nvec`` column vectors, cached: a plan depends on nothing else.
 
     A worker is a warp, or 8 or 16 lanes of one for rows of up to 16
     vectors; wider rows are cut into slabs of 32 vectors, each its own work
@@ -111,10 +108,10 @@ def launch_shape(dtype: torch.dtype, width: int, batch: int, *, csr: bool = Fals
                        weighted=weighted)
     shape = torch.zeros(4, dtype=torch.int64)
     err = _build.load_library().cuembed_forward_shape(
-        int(csr), _DTYPE_CODE[dtype], index_bytes, offset_bytes, int(weighted),
+        int(csr), _build.DTYPE_CODE[dtype], index_bytes, offset_bytes, int(weighted),
         int(low_precision_math), vec, plan.lanes, plan.threads, plan.smem_bytes,
         shape.data_ptr())
-    _raise_on_error(err, "csr_forward_kernel" if csr else "fixed_forward_kernel")
+    _build.raise_on_error(err, "csr_forward_kernel" if csr else "fixed_forward_kernel")
     regs, spill, smem, blocks = shape.tolist()
     return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
             "threads": plan.threads, "blocks_per_sm": blocks, "lanes": plan.lanes}
@@ -142,37 +139,21 @@ def _check_common(table, indices, weights, mode):
             )
 
 
-def _check_placement(tensors):
-    """Same device for all, contiguous; True if that device is CUDA."""
-    device = tensors[0].device
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f"all inputs must be on {device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device: {device}")
-    return device.type == "cuda"
+def _check_fixed(table, indices, weights, mode) -> bool:
+    """A fixed-hotness lookup's checks, in their order; True on CUDA.
+    :func:`pack_fixed_many`'s combined test refuses exactly what they raise
+    on, and the CPU."""
+    _check_common(table, indices, weights, mode)
+    if indices.dim() != 2:
+        raise ValueError("fixed-hotness indices must be [batch, hotness]")
+    return _build.check_placement([table, indices] + ([] if weights is None else [weights]))
 
 
-def _vec_bytes(width: int, itemsize: int, *tensors) -> int:
-    """The widest load (16 or 8 bytes, else one element) that divides the
-    row stride and every data pointer."""
-    bits = width * itemsize
-    for t in tensors:
-        bits |= t.data_ptr()
-    return _vec_of(bits, itemsize)
-
-
-def _vec_of(bits: int, itemsize: int) -> int:
-    """:func:`_vec_bytes` of the row stride and pointers OR-ed into ``bits``:
-    a power of two divides them all where it divides that."""
+def _vec_bytes(bits: int, itemsize: int) -> int:
+    """The widest load (16 or 8 bytes, else one element) that divides a row's
+    bytes and every data pointer, all OR-ed into ``bits``: a power of two
+    divides them all where it divides that."""
     return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else itemsize
-
-
-def _raise_on_error(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
 
 
 def embedding_forward_cuda(
@@ -183,7 +164,11 @@ def embedding_forward_cuda(
     mode: CombineMode = CombineMode.SUM,
     low_precision_math: bool = False,
 ) -> torch.Tensor:
-    """Fixed-hotness forward on K1.
+    """Fixed-hotness forward on K1: :func:`embedding_forward_cuda_many` of
+    one lookup, spanned ``cuembed::launch.k1``; where that refuses it, the
+    checks raise their error, or the plain version serves it on the CPU. A
+    lookup on the card that the checks pass and the host pass refuses raises
+    ``RuntimeError``: the two tests disagree, and nothing falls back.
 
     Args:
       table: ``[num_categories, width]`` fp32/fp16/bf16, contiguous.
@@ -195,48 +180,14 @@ def embedding_forward_cuda(
     Returns:
       ``[batch, width]`` in the table's dtype.
     """
-    _check_common(table, indices, weights, mode)
-    if indices.dim() != 2:
-        raise ValueError("fixed-hotness indices must be [batch, hotness]")
-    tensors = [table, indices] + ([weights] if weights is not None else [])
-    if not _check_placement(tensors):
-        return embedding_forward_torch(
-            table, indices, None, weights, mode=mode,
-            low_precision_math=low_precision_math,
-        )
-    num_rows, width = table.shape
-    batch, hotness = indices.shape
-    out = torch.empty((batch, width), dtype=table.dtype, device=table.device)
-    if batch == 0 or width == 0:
+    out, = _forward_fixed([table], [indices], [weights], [mode], low_precision_math,
+                          batched=False)
+    if out is not None:
         return out
-    span = (trace.begin("launch.k1")
-            if trace.torch_profiler._is_profiler_enabled else None)
-    try:
-        acc_dt = accumulation_dtype(table.dtype, low_precision_math)
-        mean = mode == CombineMode.MEAN
-        vec = _vec_bytes(width, table.element_size(), table, out)
-        plan = launch_plan(width * table.element_size() // vec, batch, csr=False,
-                           weighted=weights is not None)
-        lib = _build.load_library()
-        with torch.cuda.device(table.device):
-            err = lib.cuembed_fixed_forward(
-                table.data_ptr(), indices.data_ptr(),
-                weights.data_ptr() if weights is not None else None,
-                out.data_ptr(),
-                num_rows, batch, hotness, width,
-                _DTYPE_CODE[table.dtype], indices.element_size(),
-                int(acc_dt != torch.float32), vec,
-                rounded_reciprocal(hotness, acc_dt) if mean else 1.0, int(mean),
-                plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
-                plan.smem_bytes,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(err, "fixed_forward_kernel")
-    finally:
-        if span is not None:
-            trace.end(span)
-    trace.COUNTS["launch.k1"] += 1
-    return out
+    if _check_fixed(table, indices, weights, mode):
+        raise RuntimeError("K1's host pass refused a lookup that its checks accept")
+    return embedding_forward_torch(table, indices, None, weights, mode=mode,
+                                   low_precision_math=low_precision_math)
 
 
 def embedding_forward_cuda_csr(
@@ -270,7 +221,7 @@ def embedding_forward_cuda_csr(
     if offsets.dtype not in INDEX_DTYPES:
         raise ValueError(f"unsupported offsets dtype: {offsets.dtype}")
     tensors = [table, indices, offsets] + ([weights] if weights is not None else [])
-    if not _check_placement(tensors):
+    if not _build.check_placement(tensors):
         return embedding_forward_torch(
             table, indices, offsets, weights, mode=mode,
             low_precision_math=low_precision_math,
@@ -280,151 +231,130 @@ def embedding_forward_cuda_csr(
     out = torch.empty((batch, width), dtype=table.dtype, device=table.device)
     if batch == 0 or width == 0:
         return out
-    span = (trace.begin("launch.k2")
-            if trace.torch_profiler._is_profiler_enabled else None)
-    try:
-        acc_dt = accumulation_dtype(table.dtype, low_precision_math)
-        vec = _vec_bytes(width, table.element_size(), table, out)
-        plan = launch_plan(width * table.element_size() // vec, batch, csr=True,
-                           weighted=weights is not None)
-        lib = _build.load_library()
-        with torch.cuda.device(table.device):
-            err = lib.cuembed_csr_forward(
-                table.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
-                weights.data_ptr() if weights is not None else None,
-                out.data_ptr(),
-                num_rows, batch, indices.shape[0], width,
-                _DTYPE_CODE[table.dtype], indices.element_size(),
-                offsets.element_size(), int(acc_dt != torch.float32), vec,
-                int(mode == CombineMode.MEAN),
-                plan.lanes, plan.slabs, plan.items_per_block, plan.threads,
-                plan.smem_bytes,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(err, "csr_forward_kernel")
-    finally:
-        if span is not None:
-            trace.end(span)
-    trace.COUNTS["launch.k2"] += 1
+    acc_dt = accumulation_dtype(table.dtype, low_precision_math)
+    itemsize = table.element_size()
+    vec = _vec_bytes(width * itemsize | table.data_ptr() | out.data_ptr(), itemsize)
+    plan = launch_plan(width * itemsize // vec, batch, True, weights is not None)
+    _build.launch(
+        "cuembed_csr_forward",
+        (table.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
+         weights.data_ptr() if weights is not None else None, out.data_ptr(),
+         num_rows, batch, indices.shape[0], width, _build.DTYPE_CODE[table.dtype],
+         indices.element_size(), offsets.element_size(), int(acc_dt != torch.float32),
+         vec, int(mode == CombineMode.MEAN), plan.lanes, plan.slabs, plan.items_per_block,
+         plan.threads, plan.smem_bytes),
+        device=table.device, kernel="csr_forward_kernel", span="launch.k2",
+        counter="launch.k2")
     return out
 
 
 # int64 words of one K1 descriptor (csrc/forward.cu::cuembed_fixed_forward_many).
 FIXED_DESC_WORDS = 20
-
-
-@functools.lru_cache(maxsize=4096)
-def fixed_plan(nvec: int, batch: int, weighted: bool) -> LaunchPlan:
-    """K1's :func:`launch_plan`, cached: a plan depends on nothing else."""
-    return launch_plan(nvec, batch, csr=False, weighted=weighted)
-
-
-@functools.lru_cache(maxsize=1024)
-def _fixed_words(dtype: torch.dtype, low_precision_math: bool, hotness: int,
-                 mean: bool) -> tuple:
-    """Words 10-13 of a K1 descriptor: the dtype code, low-precision math,
-    the bits of the C float MEAN scales by (its rounded 1/hotness, else 1),
-    and MEAN."""
-    acc_dt = accumulation_dtype(dtype, low_precision_math)
-    scale = rounded_reciprocal(hotness, acc_dt) if mean else 1.0
-    return (_DTYPE_CODE[dtype], int(acc_dt != torch.float32),
-            struct.unpack("<I", struct.pack("<f", scale))[0], int(mean))
-
-
 # Bytes of an element of each table and index dtype.
 _ITEMSIZE = {torch.float32: 4, torch.float16: 2, torch.bfloat16: 2, torch.int32: 4,
              torch.int64: 8}
 
 
-def _lookup_error(table, indices, weights, mode):
-    """Raise the error that the per-table route raises for a lookup that
-    :func:`pack_fixed_many`'s checks refused: its checks, in its order."""
-    from cuembed_tpu_torch.ops.api import _validate  # api imports this module
-
-    check_index_dtype(indices.dtype)
-    _validate(table, indices, None, weights, mode)
-    _check_common(table, indices, weights, mode)
-    _check_placement([table, indices] + ([] if weights is None else [weights]))
+@functools.lru_cache(maxsize=16384)
+def _fixed_words(dtype: torch.dtype, low_precision_math: bool, hotness: int, mean: bool,
+                 width: int, batch: int, weighted: bool, align: int) -> tuple:
+    """Words 9-19 of a K1 descriptor, which depend on these alone: the load
+    width (``align``: the row's bytes and the table and output pointers
+    OR-ed, modulo 16), the dtype code, low-precision math, the bits of the C
+    float MEAN scales by (its rounded 1/hotness, else 1), MEAN, and the
+    launch plan."""
+    itemsize = _ITEMSIZE[dtype]
+    vec = _vec_bytes(align, itemsize)
+    acc_dt = accumulation_dtype(dtype, low_precision_math)
+    scale = rounded_reciprocal(hotness, acc_dt) if mean else 1.0
+    return (vec, _build.DTYPE_CODE[dtype], int(acc_dt != torch.float32),
+            struct.unpack("<I", struct.pack("<f", scale))[0], int(mean),
+            *launch_plan(width * itemsize // vec, batch, False, weighted))
 
 
 def pack_fixed_many(tables, indices, weights, modes, *, low_precision_math=False):
     """The host pass of :func:`embedding_forward_cuda_many`, which launches
-    nothing: each lookup's checks, which refuse what the per-table route
-    (:func:`~cuembed_tpu_torch.ops.api.embedding_lookup`, then
-    :func:`embedding_forward_cuda`) refuses, with its errors; one output
-    buffer for the lookups that share (batch, width, dtype, device), each
-    lookup's ``[batch, width]`` output a view of it; and the words of the K1
-    descriptors, by device, of the lookups that have work
-    (``FIXED_DESC_WORDS`` each, in
+    nothing: one combined test a lookup of :func:`embedding_forward_cuda`'s
+    checks and of the card, which leaves a lookup that fails it without an
+    output (None); one output buffer for the others that share (batch,
+    width, dtype, device), each output a view of it (a lookup alone in its
+    group gets a tensor of its own); and the K1 descriptors' words, by
+    device, of the lookups with work (``FIXED_DESC_WORDS`` each, in
     ``csrc/forward.cu::cuembed_fixed_forward_many``'s order). Returns
     ``(outputs, {device: words})``."""
-    looks, groups = [], {}
-    for table, idx, w, mode in zip(tables, indices, weights, modes):
-        table, idx = table.contiguous(), idx.contiguous()
-        if w is not None:
-            w = w.to(torch.float32).contiguous()
+    outs, looks, groups = [None] * len(tables), [], {}
+    for i, (table, idx, w, mode) in enumerate(zip(tables, indices, weights, modes)):
         tshape, ishape, dtype, device = table.shape, idx.shape, table.dtype, table.device
-        if (dtype not in STORAGE_DTYPES or idx.dtype not in INDEX_DTYPES
+        if (not table.is_cuda or dtype not in STORAGE_DTYPES or idx.dtype not in INDEX_DTYPES
                 or len(tshape) != 2 or len(ishape) != 2 or idx.device != device
                 or mode == CombineMode.CONCAT
-                or (w is not None and (mode != CombineMode.SUM or w.shape != ishape
-                                       or w.device != device))):
-            _lookup_error(table, idx, w, mode)
+                or not (table.is_contiguous() and idx.is_contiguous())
+                or (w is not None and (mode != CombineMode.SUM or w.dtype != torch.float32
+                                       or w.shape != ishape or w.device != device
+                                       or not w.is_contiguous()))):
+            continue
         key = (ishape[0], tshape[1], dtype, device)
-        groups.setdefault(key, []).append(len(looks))
-        looks.append((table, idx, w, mode == CombineMode.MEAN, tshape[0], ishape[1], key))
-    outs, out_ptrs = [None] * len(looks), [0] * len(looks)
+        groups.setdefault(key, []).append(i)
+        looks.append((i, table, idx, w, mode == CombineMode.MEAN, tshape[0], ishape[1], key))
+    out_ptrs = {}
     for (batch, width, dtype, device), members in groups.items():
+        if len(members) == 1:
+            out = outs[members[0]] = torch.empty((batch, width), dtype=dtype, device=device)
+            out_ptrs[members[0]] = out.data_ptr()
+            continue
         buf = torch.empty((len(members), batch, width), dtype=dtype, device=device)
         ptr, step = buf.data_ptr(), batch * width * _ITEMSIZE[dtype]
         for k, (i, out) in enumerate(zip(members, buf.unbind(0))):
             outs[i], out_ptrs[i] = out, ptr + k * step
     descs = {}
-    for (table, idx, w, mean, num_rows, hotness, (batch, width, dtype, device)), op in zip(
-            looks, out_ptrs):
+    for i, table, idx, w, mean, num_rows, hotness, (batch, width, dtype, device) in looks:
         if batch == 0 or width == 0:
             continue
-        itemsize, tp = _ITEMSIZE[dtype], table.data_ptr()
-        vec = _vec_of(width * itemsize | tp | op, itemsize)
+        tp, op = table.data_ptr(), out_ptrs[i]
         words = descs.get(device)
         if words is None:
             words = descs[device] = []
         words += (tp, idx.data_ptr(), 0 if w is None else w.data_ptr(), op,
-                  num_rows, batch, hotness, width, _ITEMSIZE[idx.dtype], vec,
-                  *_fixed_words(dtype, low_precision_math, hotness, mean),
-                  *fixed_plan(width * itemsize // vec, batch, w is not None))
+                  num_rows, batch, hotness, width, _ITEMSIZE[idx.dtype],
+                  *_fixed_words(dtype, low_precision_math, hotness, mean, width, batch,
+                                w is not None, (width * _ITEMSIZE[dtype] | tp | op) % 16))
     return outs, descs
 
 
 def embedding_forward_cuda_many(tables, indices, weights, modes, *,
                                 low_precision_math=False) -> list:
-    """Fixed-hotness forwards on K1, many at once: lookup ``i`` is
-    ``embedding_forward_cuda(tables[i], indices[i], weights[i],
-    mode=modes[i], low_precision_math=low_precision_math)``, bit for bit,
-    on CUDA tensors (the same K1 launch with the same arguments). One host
-    pass checks every lookup and packs its descriptor
-    (:func:`pack_fixed_many`), and one call into the library per device
-    launches them in turn on that device's current stream. Lookups that
-    share (batch, width, dtype, device) return views of one buffer.
+    """Fixed-hotness forwards on K1, the list form: one host pass tests every
+    lookup and packs its descriptor (:func:`pack_fixed_many`), and one call
+    into the library per device launches them in turn on that device's
+    current stream. Lookups that share (batch, width, dtype, device) return
+    views of one buffer.
 
     Returns:
-      each lookup's ``[batch, width]`` output in the table's dtype, in order.
+      for each lookup, in order, ``embedding_forward_cuda(tables[i],
+      indices[i], weights[i], mode=modes[i],
+      low_precision_math=low_precision_math)``, bit for bit, or None where
+      the test refused it (on the CPU, or inputs whose checks raise): the
+      caller routes those one at a time.
     """
+    return _forward_fixed(tables, indices, weights, modes, low_precision_math,
+                          batched=True)
+
+
+def _forward_fixed(tables, indices, weights, modes, low_precision_math, *,
+                   batched: bool) -> list:
+    """K1's one host path: the host pass, then one call into the library a
+    device, spanned ``launch.k1`` for one lookup, ``launch.k1_batch`` (and
+    counted as such besides) for the list form."""
     outs, descs = pack_fixed_many(tables, indices, weights, modes,
                                   low_precision_math=low_precision_math)
     for device, words in descs.items():
-        span = (trace.begin("launch.k1_batch")
-                if trace.torch_profiler._is_profiler_enabled else None)
-        try:
-            lib = _build.load_library()
-            with torch.cuda.device(device):
-                err = lib.cuembed_fixed_forward_many(
-                    struct.pack(f"{len(words)}q", *words), len(words) // FIXED_DESC_WORDS,
-                    torch.cuda.current_stream().cuda_stream)
-            _raise_on_error(err, "fixed_forward_kernel")
-        finally:
-            if span is not None:
-                trace.end(span)
-        trace.COUNTS["launch.k1"] += len(words) // FIXED_DESC_WORDS
-        trace.COUNTS["launch.k1_batch"] += 1
+        n = len(words) // FIXED_DESC_WORDS
+        _build.launch("cuembed_fixed_forward_many", (struct.pack(f"{len(words)}q", *words), n),
+                      device=device, kernel="fixed_forward_kernel",
+                      span="launch.k1_batch" if batched else "launch.k1",
+                      counter="launch.k1", count=n)
+        if batched:
+            trace.COUNTS["launch.k1_batch"] += 1
+    if batched:
+        trace.COUNTS["collection.batched_tables"] += sum(o is not None for o in outs)
     return outs

@@ -31,6 +31,8 @@ table served without tiering concerns the TPU only and is not emitted.
 Unlike the TPU, where the Pallas backward was opt-in, K3 is the backward of
 every backend but ``"xla"`` on CUDA. CONCAT is a pure gather and goes to
 ``index_select`` on every device.
+
+This module alone decides which kernel serves a lookup.
 """
 
 from __future__ import annotations
@@ -153,6 +155,30 @@ def forward(
     finally:
         if span is not None:
             trace.end(span)
+
+
+def forward_many(tables, indices, weights, modes, *, backend: str = "auto") -> list:
+    """:func:`forward` for a list of fixed-hotness lookups, where K1 serves
+    them: under ``"auto"`` and ``"pallas"`` every lookup but a CONCAT one (a
+    gather) goes to ``cuda_forward.embedding_forward_cuda_many`` together,
+    with no ``dispatch.forward`` span. Result ``i`` is ``forward(tables[i],
+    indices[i], None, weights[i], mode=modes[i], ...)``, bit for bit, where
+    that call serves it, else None (a CONCAT lookup, every lookup under the
+    other backends, and what the K1 path refuses): the caller routes those
+    through :func:`forward` one at a time. (A zero-width table, which
+    :func:`forward`'s narrow test refuses with a ``ZeroDivisionError``, gets
+    its empty output here.)"""
+    _check_backend(backend)
+    if backend not in ("auto", "pallas"):
+        return [None] * len(tables)
+    if CombineMode.CONCAT not in modes:
+        return cuda_forward.embedding_forward_cuda_many(tables, indices, weights, modes)
+    k1 = [k for k, m in enumerate(modes) if m != CombineMode.CONCAT]
+    outs = [None] * len(tables)
+    for k, out in zip(k1, cuda_forward.embedding_forward_cuda_many(
+            *([seq[k] for k in k1] for seq in (tables, indices, weights, modes)))):
+        outs[k] = out
+    return outs
 
 
 def backward(

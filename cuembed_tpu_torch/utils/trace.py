@@ -34,12 +34,13 @@ The spans, from the entry point down:
   preparation, the checks, the ``autograd.Function``).
 * ``dispatch.forward``, ``dispatch.backward_compressed``: the routing.
 * ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k4``: a kernel's
-  launch plan, the ctypes call and its error check.
-* ``launch.k1_batch``: the one ctypes call that launches K1 for every lookup
-  of a batched forward (``cuda_forward.embedding_forward_cuda_many``, the
-  route of ``collection.apply`` for its tables on the card that need no
-  gradient), and its error check. The lookups it serves make no
-  ``api.lookup``, ``dispatch.forward`` or ``launch.k1`` span.
+  launch (``ops/_build.py::launch``): the device guard, the stream handle,
+  the ctypes call and its error check.
+* ``launch.k1_batch``: the same for the one ctypes call of a list-form
+  forward (``api.embedding_lookup_many``, ``collection.apply``'s route for
+  its fixed-hotness tables on the card), which launches K1 for every lookup
+  it serves; those make no ``api.lookup``, ``dispatch.forward`` or
+  ``launch.k1`` span.
 * ``train.row_sums``, ``train.adagrad``: a row-wise AdaGrad update's
   per-row gradient sums and its update of the touched rows (K4).
 * ``wait.<site>``: a read on the host of a size or mask that the device
@@ -53,9 +54,12 @@ compare two snapshots for the counts in between. There is no reset.
 * ``launch.k1``, ``launch.k2``, ``launch.k3_full``, ``launch.k3_compressed``,
   ``launch.k4``: kernel launches (a CUDA graph counts its captures, not its
   replays), the batched forward's K1 launches among them;
-* ``launch.k1_batch``: calls of the batched forward into the library;
-* ``collection.batched_tables``: tables that ``EmbeddingCollection.apply``
-  served by the batched forward;
+* ``launch.k1_batch``: calls of the list-form forward into the library,
+  one a device;
+* ``collection.batched_tables``: lookups the list-form forward served,
+  those without work among them (the fixed-hotness tables
+  ``EmbeddingCollection.apply`` served that way; a caller of
+  ``api.embedding_lookup_many`` counts as well);
 * ``wait.num_unique``, ``wait.keep_mask``: the host reads of :func:`wait`
   (SGD's and Adam's updates; row-wise AdaGrad's makes none);
 * ``build``: compiles of the library in this process (a process that only

@@ -1,18 +1,25 @@
-"""``EmbeddingCollection.apply``'s batched K1 forward
-(``cuda_forward.embedding_forward_cuda_many``): one host pass and one call
-into the library for every table that ``collection.batched_route`` admits.
+"""``EmbeddingCollection.apply``'s fixed-hotness tables through the one route
+to K1: ``api.embedding_lookup_many`` (the lookups on the card that need no
+gradient) -> ``dispatch.forward_many`` (the K1 lookups) ->
+``cuda_forward.embedding_forward_cuda_many`` (one host pass, one call into
+the library).
 
-On the CPU: the rule that decides each table's route, ``apply`` routing a
-mixed call by it (with the route stood in by its host pass and the plain
-lookups), CPU tables on the per-table route, the plan cache, the
-descriptors' words and the output buffers, and the per-table route's errors
-for bad inputs. On the card (``-m cuda``): the batched ``apply`` equal to
-the per-table ``embedding_lookup`` bit for bit at the DLRM-v2 hotnesses and
-across table dtypes, id dtypes and combine modes; a call mixing eligible
-and ineligible tables; the counters and the trace of one 26-table call; and
-the errors of bad inputs.
+On the CPU: the rule where it lives (collection: CSR tables apart; api: on
+the card, no gradient, its checks; dispatch: CONCAT apart), ``apply``
+routing a mixed call by it with the card stood in (every tensor reads as on
+the card, and the library's call is a host version of K1 that reads the
+descriptors' pointers and writes the outputs), CPU tables on the per-table
+route, the one cached plan, the descriptors' words and the output buffers,
+and the list form's errors against ``embedding_lookup``'s. On the card
+(``-m cuda``): the batched ``apply`` equal to the per-table
+``embedding_lookup`` bit for bit at the DLRM-v2 hotnesses and across table
+dtypes, id dtypes and combine modes; a call mixing batched and per-table
+tables; the counters and the trace of one 26-table call; and the errors of
+bad inputs.
 """
 
+import contextlib
+import ctypes
 import struct
 from types import SimpleNamespace
 
@@ -21,10 +28,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from cuembed_tpu_torch import collection as collection_mod
-from cuembed_tpu_torch.collection import EmbeddingCollection, TableConfig, batched_route
-from cuembed_tpu_torch.ops import cuda_forward
-from cuembed_tpu_torch.ops.api import embedding_lookup, embedding_lookup_csr
+from cuembed_tpu_torch.collection import EmbeddingCollection, TableConfig
+from cuembed_tpu_torch.ops import _build, api, cuda_forward
+from cuembed_tpu_torch.ops.api import (
+    embedding_lookup,
+    embedding_lookup_csr,
+    embedding_lookup_many,
+)
 from cuembed_tpu_torch.ops.lookup_torch import embedding_forward_torch, rounded_reciprocal
 from cuembed_tpu_torch.types import CombineMode, accumulation_dtype
 from cuembed_tpu_torch.utils import trace
@@ -42,37 +52,113 @@ def _delta(before):
     return {k: after[k] - before[k] for k in after}
 
 
+# -- the card stood in on the CPU ----------------------------------------------
+
+def _host_view(ptr, shape, dtype):
+    """The tensor of ``shape`` and ``dtype`` at host address ``ptr``."""
+    nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_byte * nbytes).from_address(ptr),
+                            dtype=dtype).view(shape)
+
+
+def _k1_on_the_host(packed, n, stream):
+    """``cuembed_fixed_forward_many`` on host memory: each descriptor's
+    lookup by the plain version, read from and written to its pointers."""
+    d = struct.unpack(f"{n * W}q", packed)
+    dtypes = {0: torch.float32, 1: torch.float16, 2: torch.bfloat16}
+    for k in range(n):
+        (tp, ip, wp, op, rows, batch, hot, width, ibytes, _, dt, lpm, _, mean,
+         *_) = d[W * k:W * (k + 1)]
+        table = _host_view(tp, (rows, width), dtypes[dt])
+        idx = _host_view(ip, (batch, hot), torch.int64 if ibytes == 8 else torch.int32)
+        w = _host_view(wp, (batch, hot), torch.float32) if wp else None
+        _host_view(op, (batch, width), dtypes[dt]).copy_(embedding_forward_torch(
+            table, idx, None, w, mode=MEAN if mean else SUM, low_precision_math=bool(lpm)))
+    return 0
+
+
+@pytest.fixture
+def on_cuda(monkeypatch):
+    """Every tensor reads as on the card unless marked ``on_card = False``,
+    the library's call is :func:`_k1_on_the_host`, and the device guard and
+    stream are stood in; the tables that each batched call served."""
+    served = []
+    real = cuda_forward.embedding_forward_cuda_many
+
+    def many(tables, *args, **kwargs):
+        outs = real(tables, *args, **kwargs)
+        served.append([t.data_ptr() for t, out in zip(tables, outs) if out is not None])
+        return outs
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda",
+                        property(lambda t: t.__dict__.get("on_card", True)))
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: SimpleNamespace(cuembed_fixed_forward_many=_k1_on_the_host))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_forward, "embedding_forward_cuda_many", many)
+    return served
+
+
 # -- the rule ----------------------------------------------------------------
 
-def _t(cuda=True, grad=False):
-    return SimpleNamespace(is_cuda=cuda, requires_grad=grad)
-
-
-# (table, indices, weights, offsets, mode, grad mode) -> batched?
+# case -> (weighted, CSR, mode, grad mode), batched?
 RULE = {
-    "sum": ((_t(), _t(), None, None, SUM, True), True),
-    "mean": ((_t(), _t(), None, None, MEAN, True), True),
-    "weighted": ((_t(), _t(), _t(), None, SUM, True), True),
-    "csr": ((_t(), _t(), None, _t(), SUM, True), False),
-    "concat": ((_t(), _t(), None, None, CONCAT, True), False),
-    "cpu table": ((_t(cuda=False), _t(), None, None, SUM, True), False),
-    "cpu indices": ((_t(), _t(cuda=False), None, None, SUM, True), False),
-    "table needs grad": ((_t(grad=True), _t(), None, None, SUM, True), False),
-    "table requires grad, grad mode off": ((_t(grad=True), _t(), None, None, SUM, False),
-                                           True),
-    "weights need grad": ((_t(), _t(), _t(grad=True), None, SUM, True), False),
-    "weights require grad, grad mode off": ((_t(), _t(), _t(grad=True), None, SUM, False),
-                                            True),
+    "sum": ((False, False, SUM, True), True),
+    "mean": ((False, False, MEAN, True), True),
+    "weighted": ((True, False, SUM, True), True),
+    "csr": ((False, True, SUM, True), False),
+    "concat": ((False, False, CONCAT, True), False),
+    "cpu table": ((False, False, SUM, True), False),
+    "cpu indices": ((False, False, SUM, True), False),
+    "table needs grad": ((False, False, SUM, True), False),
+    "table requires grad, grad mode off": ((False, False, SUM, False), True),
+    "weights need grad": ((True, False, SUM, True), False),
+    "weights require grad, grad mode off": ((True, False, SUM, False), True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(RULE))
-def test_batched_route_rule(case):
-    args, want = RULE[case]
-    assert batched_route(*args) is want
+def test_batched_route_rule(on_cuda, case, monkeypatch):
+    """One table through ``apply``, where the rule now lives: the collection
+    (CSR apart), api (no gradient to take), dispatch (CONCAT apart) and the
+    K1 path's test (the card; ids elsewhere than the table, as host ids
+    beside a table on the card, take the per-table route, which raises the
+    checks' error)."""
+    (weighted, csr, mode, grad), want = RULE[case]
+    per_table = []
+    real = api.embedding_lookup
 
+    def spy(table, *args, **kwargs):
+        per_table.append(table.data_ptr())
+        return real(table, *args, **kwargs)
 
-# -- apply's routing, on the CPU with the route stood in ----------------------
+    monkeypatch.setattr(api, "embedding_lookup", spy)
+    g = torch.Generator().manual_seed(7)
+    table = torch.randn((10, 8), generator=g)
+    idx = torch.randint(0, 10, (4, 3), generator=g)
+    w = torch.rand((4, 3), generator=g) if weighted else None
+    off = None
+    if csr:
+        idx, off = idx.reshape(-1), torch.arange(0, 13, 3)
+    if case == "cpu table":
+        table.on_card = False
+    elif case == "cpu indices":
+        idx = idx.to("meta")
+    elif case.startswith("table"):
+        table.requires_grad_(True)
+    elif case.startswith("weights"):
+        w.requires_grad_(True)
+    coll = EmbeddingCollection([TableConfig("t", 10, 8, mode=mode)])
+    raises = (pytest.raises(ValueError, match="must be on") if case == "cpu indices"
+              else contextlib.nullcontext())
+    with torch.set_grad_enabled(grad), raises:
+        coll.apply({"t": table}, {"t": idx}, {"t": w} if w is not None else None,
+                   {"t": off} if off is not None else None)
+    assert ([table.data_ptr()] in on_cuda) is want
+    assert per_table == ([] if want or csr else [table.data_ptr()])
+
 
 ROWS, WIDTH, BATCH = 50, 6, 7
 
@@ -94,40 +180,17 @@ def _mixed(requires_grad=False):
     return coll, tables, ids, weights, offsets
 
 
-def _per_table(coll, tables, ids, weights, offsets):
+def _per_table(coll, tables, ids, weights, offsets, backend="auto"):
     out = {}
     for n, idx in ids.items():
         mode = coll.configs[n].mode
         if n in offsets:
             out[n] = embedding_lookup_csr(tables[n], idx, offsets[n], weights.get(n),
-                                          mode=mode)
+                                          mode=mode, backend=backend)
         else:
-            out[n] = embedding_lookup(tables[n], idx, weights.get(n), mode=mode)
+            out[n] = embedding_lookup(tables[n], idx, weights.get(n), mode=mode,
+                                      backend=backend)
     return out
-
-
-@pytest.fixture
-def on_cuda(monkeypatch):
-    """The rule applied as if every tensor were on the card, and the batched
-    forward stood in by its host pass and the plain lookups; the tables the
-    route served, call by call."""
-    served = []
-    real = batched_route
-
-    def rule(table, idx, w, off, mode, grad):
-        return real(SimpleNamespace(is_cuda=True, requires_grad=table.requires_grad),
-                    SimpleNamespace(is_cuda=True), w, off, mode, grad)
-
-    def many(tables, indices, weights, modes):
-        outs, _ = cuda_forward.pack_fixed_many(tables, indices, weights, modes)
-        served.append([t.data_ptr() for t in tables])
-        for out, t, i, w, m in zip(outs, tables, indices, weights, modes):
-            out.copy_(embedding_forward_torch(t, i, None, w, mode=m))
-        return outs
-
-    monkeypatch.setattr(collection_mod, "batched_route", rule)
-    monkeypatch.setattr(cuda_forward, "embedding_forward_cuda_many", many)
-    return served
 
 
 @pytest.mark.parametrize("grad", [True, False], ids=["grad", "no_grad"])
@@ -136,10 +199,13 @@ def test_apply_routes_a_mixed_call_by_the_rule(on_cuda, grad):
     before = trace.counters()
     with torch.set_grad_enabled(grad):
         got = coll.apply(tables, ids, weights, offsets)
-        want = _per_table(coll, tables, ids, weights, offsets)
+        delta = _delta(before)
+        want = _per_table(coll, tables, ids, weights, offsets, backend="xla")
     batched = ["a", "b", "w"] + ([] if grad else ["g"])
     assert on_cuda == [[tables[n].data_ptr() for n in batched]]
-    assert _delta(before)["collection.batched_tables"] == len(batched)
+    assert delta["collection.batched_tables"] == len(batched)
+    assert delta["launch.k1_batch"] == 1
+    assert delta["launch.k1"] == len(batched) + grad  # "g" by the one-lookup path
     assert list(got) == list(ids)
     for n in ids:
         assert torch.equal(got[n], want[n]), n
@@ -152,7 +218,7 @@ def test_apply_takes_the_per_table_route_tiered_or_off_the_kernels(on_cuda, kw):
     coll, tables, ids, weights, offsets = _mixed()
     got = coll.apply(tables, ids, weights, offsets, **kw)
     assert on_cuda == []
-    want = _per_table(coll, tables, ids, weights, offsets)
+    want = _per_table(coll, tables, ids, weights, offsets, backend="xla")
     assert all(torch.equal(got[n], want[n]) for n in ids)
 
 
@@ -175,10 +241,10 @@ def test_cpu_tables_take_the_per_table_route():
                                                  (32, 65536, False), (2, 1, True),
                                                  (33, 5000, False)])
 def test_plan_cache_returns_launch_plans_plan(nvec, batch, weighted):
-    want = cuda_forward.launch_plan(nvec, batch, csr=False, weighted=weighted)
-    assert cuda_forward.fixed_plan(nvec, batch, weighted) == want
-    assert cuda_forward.fixed_plan(nvec, batch, weighted) is cuda_forward.fixed_plan(
-        nvec, batch, weighted)
+    want = cuda_forward.launch_plan.__wrapped__(nvec, batch, csr=False, weighted=weighted)
+    assert cuda_forward.launch_plan(nvec, batch, False, weighted) == want
+    assert cuda_forward.launch_plan(nvec, batch, False, weighted) is cuda_forward.launch_plan(
+        nvec, batch, False, weighted)
 
 
 # (table dtype, width, index dtype, weighted, mode, batch, hotness)
@@ -204,7 +270,7 @@ def _lookups(rows=40):
 
 
 @pytest.mark.parametrize("lpm", [False, True], ids=["fp32_sums", "low_precision"])
-def test_descriptor_words_are_the_per_table_launch_arguments(lpm):
+def test_descriptor_words_are_the_per_table_launch_arguments(on_cuda, lpm):
     tables, ids, ws, modes = _lookups()
     outs, descs = cuda_forward.pack_fixed_many(tables, ids, ws, modes,
                                                low_precision_math=lpm)
@@ -216,22 +282,23 @@ def test_descriptor_words_are_the_per_table_launch_arguments(lpm):
         t, idx, w, out, mode = tables[i], ids[i], ws[i], outs[i], modes[i]
         d = words[W * k:W * (k + 1)]
         itemsize = t.element_size()
-        vec = cuda_forward._vec_bytes(t.shape[1], itemsize, t, out)
+        vec = next((v for v in (16, 8) if (t.shape[1] * itemsize) % v == 0
+                    and t.data_ptr() % v == 0 and out.data_ptr() % v == 0), itemsize)
         acc = accumulation_dtype(t.dtype, lpm)
         scale = rounded_reciprocal(idx.shape[1], acc) if mode == MEAN else 1.0
         assert d[:14] == [t.data_ptr(), idx.data_ptr(), 0 if w is None else w.data_ptr(),
                           out.data_ptr(), t.shape[0], idx.shape[0], idx.shape[1],
                           t.shape[1], idx.element_size(), vec,
-                          cuda_forward._DTYPE_CODE[t.dtype], int(acc != torch.float32),
+                          _build.DTYPE_CODE[t.dtype], int(acc != torch.float32),
                           struct.unpack("<I", struct.pack("<f", scale))[0],
                           int(mode == MEAN)]
-        assert tuple(d[14:]) == cuda_forward.launch_plan(
+        assert tuple(d[14:]) == cuda_forward.launch_plan.__wrapped__(
             t.shape[1] * itemsize // vec, idx.shape[0], csr=False, weighted=w is not None)
         assert np.float32(struct.unpack("<f", struct.pack("<I", d[12]))[0]) == np.float32(
             scale)
 
 
-def test_outputs_share_a_buffer_per_batch_width_dtype_and_device():
+def test_outputs_share_a_buffer_per_batch_width_dtype_and_device(on_cuda):
     tables, ids, ws, modes = _lookups()
     outs, _ = cuda_forward.pack_fixed_many(tables, ids, ws, modes)
     for out, t, idx in zip(outs, tables, ids):
@@ -239,11 +306,13 @@ def test_outputs_share_a_buffer_per_batch_width_dtype_and_device():
         assert out.is_contiguous()
     storage = [o.untyped_storage().data_ptr() for o in outs]
     # lookups 0 and 1 share (9, 128, fp16); every other lookup has its own key
+    # and a tensor of its own
     assert storage[0] == storage[1] and outs[0].data_ptr() != outs[1].data_ptr()
     assert len(set(storage[1:])) == len(outs) - 1
+    assert all(o._base is None for o in outs[2:])
 
 
-def test_a_lookup_without_work_has_no_descriptor():
+def test_a_lookup_without_work_has_no_descriptor(on_cuda):
     tables, ids, ws, modes = _lookups()
     _, descs = cuda_forward.pack_fixed_many(tables[-1:], ids[-1:], ws[-1:], modes[-1:])
     assert descs == {}
@@ -273,15 +342,25 @@ def _bad(kind):
 
 @pytest.mark.parametrize("kind", ["index dtype", "weights with mean", "flat indices",
                                   "3-d table", "float64 table", "weights shape"])
-def test_bad_inputs_raise_the_per_table_routes_error(kind):
+def test_bad_inputs_raise_the_per_table_routes_error(on_cuda, kind):
     table, idx, w, mode = _bad(kind)
     with pytest.raises(ValueError) as per_table:
         embedding_lookup(table, idx, w, mode=mode)
     good = _bad(None)
     with pytest.raises(ValueError) as batched:
-        cuda_forward.pack_fixed_many([good[0], table], [good[1], idx], [None, w],
-                                     [SUM, mode])
+        embedding_lookup_many([good[0], table], [good[1], idx], [None, w], [SUM, mode])
     assert str(batched.value) == str(per_table.value)
+
+
+def test_a_lookup_its_checks_accept_and_the_host_pass_refuses_raises(monkeypatch):
+    # The checks pass CPU tensors as on the card; the host pass still refuses
+    # them (not on the card): the two tests disagree, so nothing falls back.
+    table, idx, w, mode = _bad(None)
+    monkeypatch.setattr(_build, "check_placement", lambda tensors: True)
+    before = trace.counters()
+    with pytest.raises(RuntimeError, match="refused a lookup that its checks accept"):
+        cuda_forward.embedding_forward_cuda(table, idx, w, mode=mode)
+    assert _delta(before)["launch.k1"] == 0
 
 
 # -- on the card ----------------------------------------------------------------

@@ -199,7 +199,8 @@ def test_misaligned_tables_take_each_load_width(gen, dtype, lpm, shift, vec):
     base = torch.randn((201 * 256,), device="cuda", generator=gen).to(dtype)
     table = base[shift:shift + 200 * 256].view(200, 256)
     out = torch.empty((1, 256), dtype=dtype, device="cuda")
-    assert cuda_forward._vec_bytes(256, table.element_size(), table, out) == vec
+    size = table.element_size()
+    assert cuda_forward._vec_bytes(256 * size | table.data_ptr() | out.data_ptr(), size) == vec
     idx = torch.randint(0, 200, (37, 19), device="cuda", generator=gen)
     _forward_equals_plain(table, idx, None, gen, lpm)
     hots = torch.randint(0, 20, (37,), device="cuda", generator=gen)

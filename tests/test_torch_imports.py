@@ -81,3 +81,34 @@ def test_scan_sees_the_planner_and_the_rest():
         assert f"cuembed_tpu_torch/{module}" in names
     assert "examples/plan_and_train_torch.py" in names
     assert "examples/plan_and_train.py" not in names
+
+
+def _imported_names(path: Path):
+    """Every module an import statement of ``path`` names, at any depth of
+    the file, with each name a ``from`` import takes (it may be a module)."""
+    for _, module in _imported_modules(path):
+        yield module
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            for alias in node.names:
+                yield f"{node.module}.{alias.name}"
+
+
+def test_imports_run_down_the_layers():
+    """The lookup's route runs one way, collection -> api -> dispatch ->
+    the kernel wrappers -> ``_build``: ``collection.py`` imports no kernel
+    wrapper (``ops.cuda_*``), and no kernel wrapper imports ``ops.api``,
+    ``ops.dispatch`` or ``collection``."""
+    pkg = ROOT / "cuembed_tpu_torch"
+    wrappers = sorted((pkg / "ops").glob("cuda_*.py"))
+    assert {p.name for p in wrappers} == {"cuda_forward.py", "cuda_backward.py",
+                                          "cuda_adagrad.py"}
+    up = [m for m in _imported_names(pkg / "collection.py")
+          if m.startswith("cuembed_tpu_torch.ops.cuda_")]
+    assert not up, up
+    above = ("cuembed_tpu_torch.ops.api", "cuembed_tpu_torch.ops.dispatch",
+             "cuembed_tpu_torch.collection")
+    for path in wrappers:
+        up = [m for m in _imported_names(path)
+              if any(m == a or m.startswith(a + ".") for a in above)]
+        assert not up, (path.name, up)

@@ -165,7 +165,7 @@ def dedup_plan(src):
         hs *= 2
     smem = -(-(4 * n + 4 * rows) // 16) * 16 + max(8 * hs, rows * slice_bytes)
 
-    def plan(nvec, batch, *, csr, weighted):
+    def plan(nvec, batch, csr, weighted):
         if csr:
             return LAUNCH_PLAN(nvec, batch, csr=csr, weighted=weighted)
         if nvec > 32 or smem > cuda_forward.MAX_SMEM_BYTES:
@@ -323,6 +323,9 @@ def main():
             cuda_forward.launch_plan = k1_plan or LAUNCH_PLAN
             for name, value in {**defaults, **plan}.items():
                 setattr(cuda_forward, name, value)
+            for cached in (LAUNCH_PLAN, getattr(cuda_forward, "_fixed_words", None)):
+                if hasattr(cached, "cache_clear"):
+                    cached.cache_clear()  # plans and K1 descriptor words of the last variant
             if rnd == 0:
                 bad = [label for label, fn, _ in cases if not torch.equal(fn(), wants[label])]
                 if bad:

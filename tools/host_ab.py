@@ -12,8 +12,9 @@ back, the clock read before the queue drains); K1's device time on that
 request (CUDA events, L2 warm); the host time of one ``launch_plan`` call
 where the checkout has one; the enqueue time by layer, the layers in
 turns (the module request, the K1 wrapper, and the wrapper's C call alone
-on its recorded arguments); then, unless ``--steps 0``, the flagship dense
-step (autograd +
+on its recorded arguments, ``cuembed_fixed_forward_many`` with one
+descriptor, or ``cuembed_fixed_forward`` in a checkout before it); then,
+unless ``--steps 0``, the flagship dense step (autograd +
 ``torch.optim.SGD``) and row-wise AdaGrad step on a 10M x 256 bf16 table
 (``chip_smoke.step_timings``: two warm-up steps, medians of ``--steps``,
 and a ``torch.profiler`` breakdown of each). It prints one ``[host_ab]``
@@ -66,7 +67,8 @@ def layer_times(bag, batches, rounds=5):
     _build.load_library = Recorder
     kept = cuda_forward.embedding_forward_cuda(table, batches[0])  # owns the recorded output
     _build.load_library = load
-    c_call, c_args = lib.cuembed_fixed_forward, recorded["cuembed_fixed_forward"]
+    entry = next(iter(recorded))  # K1's C entry point in this checkout
+    c_call, c_args = getattr(lib, entry), recorded[entry]
     layers = {"module": bag,
               "wrapper": lambda idx: cuda_forward.embedding_forward_cuda(table, idx),
               "C call": lambda idx: c_call(*c_args)}

@@ -126,6 +126,9 @@ def build_all(variants):
         _build._run([_build.find_nvcc(), "-shared", "-o", str(so), str(fwd), str(d / "backward.o"),
                      str(apply)])
         _build.build = lambda so=so: so  # load_library's body on this library
+        if hasattr(_build, "K3_TILE"):  # the tile load_library checks the variant against
+            _build.K3_TILE = int(re.search(r"constexpr int kTile = (\d+);",
+                                           (d / "backward.cu").read_text()).group(1))
         libs[v] = _build.load_library.__wrapped__()
         flagship = r"_ZN7cuembed19coo_backward_kernelIflLb0ELi16E\S*"
         regs = re.findall(rf"Compiling entry function '({flagship})'[\s\S]*?Used (\d+) registers",
