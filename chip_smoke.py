@@ -6,11 +6,12 @@
 Phases, each of which fails the run (nonzero exit) on any fault:
 
 1. The card: name, count, and ``nvidia-smi``'s name and power limit.
-2. The build: ``csrc/forward.cu``, ``csrc/backward.cu`` and
-   ``csrc/adagrad.cu`` compiled from this checkout, with the build time and
-   ptxas's register, spill and static shared-memory counts for K1, K2, K3
-   and K4, and the launch shapes at the flagship calls (registers, spills,
-   shared memory per block, threads, resident blocks per SM) of K1 and K2,
+2. The build: ``csrc/forward.cu``, ``csrc/backward.cu``,
+   ``csrc/adagrad.cu`` and ``csrc/transpose.cu`` compiled from this
+   checkout, with the build time and ptxas's register, spill and static
+   shared-memory counts for K1, K2, K3, K4 and K5, and the launch shapes at
+   the flagship calls (registers, spills, shared memory per block, threads,
+   resident blocks per SM) of K1 and K2,
    as the wrappers plan them, of K3, and of K4 at widths 256 and 128.
 3. Parity grids on the card. K1 (fixed-hotness) and K2 (CSR) against their
    plain PyTorch versions over the shapes of tests/test_parity_bitwise.py,
@@ -69,7 +70,16 @@ Phases, each of which fails the run (nonzero exit) on any fault:
    its K4 launches too (0 unless it runs an AdaGrad update on the card),
    and the ``kernels`` line carries the counted runs' K4 launches, as it
    does K1-K3's; the timing loops' and the checks' other updates print on
-   a line of their own.
+   a line of their own. Then K5, the COO transpose, at the same two
+   lookups (4,194,304 ids into 10M rows; 6,553,600 into 40M), int64
+   power-law ids with 1% the sentinel: one counted launch each, bit for bit
+   the plain route (``torch.sort``, the sample ids and the gathers), then
+   timed beside its bound (the ids read and the sorted ids and sample ids
+   written once), its own design's bytes and the plain route. Every counted
+   phase adds its K5 launches (one a transpose: each update of a table, and
+   each autograd backward) to the ``kernels`` line's K5 count, each phase
+   checked against its expected number as K4's are, and the total against
+   ``K5_TOTAL``: this process's counted runs only, not the ranks'.
 7. The TPU engines' API (ROADMAP P7) on the same kernels, each path counted
    the same way. Serving, at config 2: ``backend="tiered"`` with
    ``auto_config(10M, 256, 2, 64)`` (K1) and config 3's weighted CSR under
@@ -199,8 +209,8 @@ from cuembed_tpu_torch import fused as fused_mod
 from cuembed_tpu_torch.models import DLRM, DLRMConfig
 from cuembed_tpu_torch.models.dlrm import (bce_with_logits, interaction,
                                            params_from_numpy)
-from cuembed_tpu_torch.ops import (_build, cuda_adagrad, cuda_backward, cuda_forward, dispatch,
-                                   narrow, quant)
+from cuembed_tpu_torch.ops import (_build, cuda_adagrad, cuda_backward, cuda_forward,
+                                   cuda_transforms, dispatch, narrow, quant)
 from cuembed_tpu_torch.ops import tiered as tiered_mod
 from cuembed_tpu_torch.ops.head import head_grad, tiered_backward_coo
 from cuembed_tpu_torch.ops.lookup_torch import SENTINEL, embedding_backward_compressed_tiered
@@ -336,7 +346,8 @@ def check_sparse_step(name, got, want, old, touched):
 
 
 PLAIN_NAMES = ("embedding_forward_torch", "embedding_backward_torch",
-               "embedding_backward_compressed_torch", "rowwise_adagrad_apply_torch")
+               "embedding_backward_compressed_torch", "rowwise_adagrad_apply_torch",
+               "coo_transpose_torch")
 
 
 @contextlib.contextmanager
@@ -363,6 +374,15 @@ _counted_from = trace.counters()
 # K4's launches in the counted runs: this process's, and the spawned ranks'
 # (each rank saves its own "counted" for the parent to add).
 K4_COUNTED = {"counted": 0, "ranks": 0}
+# K5's launches in this process's counted runs: one a transpose (each update
+# of a table, each autograd backward), checked a phase as K4's are. The
+# counted phases' total: the training path 10, p7 training 3, the P8 table,
+# fused and collection updates 1 + 1 + 8, the DLRM steps 5 + 40 and its
+# trainer 80, the offloaded table 1 + 2, the planner's example at world
+# size 1 15. (The sharded updates sort their own COO; the ranks are not
+# counted here.)
+K5_COUNTED = {"counted": 0}
+K5_TOTAL = 166
 
 
 def zero_counts():
@@ -389,11 +409,12 @@ def k4_checked(name, k4):
 
 
 @contextlib.contextmanager
-def counted(expect, name, k4=0):
+def counted(expect, name, k4=0, k5=0):
     """Set the counts to 0, run the body, and fail unless it launched
-    exactly ``expect`` of K1, K2, K3 full and K3 compressed (in that order)
-    and ``k4`` of K4 (one an AdaGrad update on the card). Every phase counts
-    its launches so, and returns them in that order."""
+    exactly ``expect`` of K1, K2, K3 full and K3 compressed (in that order),
+    ``k4`` of K4 (one an AdaGrad update on the card) and ``k5`` of K5 (one a
+    transpose: each update of a table, each autograd backward). Every phase
+    counts its launches so, and returns them in that order."""
     zero_counts()
     yield
     torch.cuda.synchronize()
@@ -402,8 +423,12 @@ def counted(expect, name, k4=0):
         raise SystemExit(f"[{name}] launched (K1, K2, K3 full, K3 compressed) "
                          f"{got}, expected {tuple(expect)}")
     k4_checked(name, k4)
+    got_k5 = trace.counters()["launch.k5"] - _counted_from["launch.k5"]
+    if got_k5 != k5:
+        raise SystemExit(f"[{name}] launched K5 {got_k5} times, expected {k5}")
+    K5_COUNTED["counted"] += k5
     print(f"[{name}] launches (K1, K2, K3 full, K3 compressed): {got}"
-          + (f"; K4: {k4}" if k4 else ""))
+          + (f"; K4: {k4}" if k4 else "") + (f"; K5: {k5}" if k5 else ""))
 
 
 def phase_build():
@@ -496,6 +521,14 @@ def phase_build():
           f"{min(regs)}..{max(regs)}, spill bytes {spills}")
     if spills:
         raise SystemExit(f"[build] K4 spills {spills} bytes")
+    # K5: its histogram and digit-pass kernels, each instantiation.
+    for family in ("histogram_kernel", "digit_pass_kernel"):
+        mine = {k: v for k, v in kernels.items() if f"{len(family)}{family}" in k}
+        if not mine:
+            raise SystemExit(f"[build] ptxas reported no {family}")
+        print(f"[build] {family}: " + "; ".join(
+            f"{re.sub(r'.*' + family, '', k)[:24]} {v['regs']} registers, {v['spill']} spill "
+            f"bytes, {v['smem']} bytes static shared memory" for k, v in mine.items()))
     for width in (WIDTH, K4_SHAPES[1][2]):
         shape = cuda_adagrad.launch_shape(torch.float16, width)
         print(f"[build] K4 at width {width} fp16: {shape['threads']} threads, "
@@ -1419,15 +1452,18 @@ def backward_timings(table, idx, flat, offsets, csr_w, gy):
           f"{kcsr:.4f} ms (PR 2: {PR2_K3_MS['csr']} ms); bound {csr_bound['bound_ms']:.4f} ms "
           f"({csr_bound['bytes']} bytes), kernel at {csr_bound['bound_ms'] / kcsr:.1%}")
 
-    # The transpose: torch.sort by index (stable), and the general two-key
-    # sort; bound: the index and sample-id streams read and written once.
+    # The transpose: K5 (the lookup's path), one stable torch.sort by index
+    # (its plain route), and the general two-key sort; bound: the index and
+    # sample-id streams read and written once.
     sid = torch.arange(live, dtype=torch.int32, device="cuda") // HOTNESS
     flat_idx = idx.reshape(-1)
+    tk = bench.cuda_time_ms(lambda: cuda_transforms.coo_transpose_cuda(flat_idx, NUM_ROWS,
+                                                                      hotness=HOTNESS))
     tp = bench.cuda_time_ms(lambda: transpose_position_ordered(sid, flat_idx))
     tg = bench.cuda_time_ms(lambda: transpose(sid, flat_idx))
     tbytes = live * (8 + 4) * 2
-    print(f"[transpose] {live} positions: one stable sort by index {tp:.4f} ms "
-          f"(the lookup's path), two-key {tg:.4f} ms; bound "
+    print(f"[transpose] {live} positions: K5 {tk:.4f} ms (the lookup's path), one stable "
+          f"sort by index {tp:.4f} ms, two-key {tg:.4f} ms; bound "
           f"{tbytes / bench.H100_HBM_BYTES_PER_S * 1e3:.4f} ms ({tbytes} bytes); "
           f"reference app bytes {bench.transpose_app_bytes(nnz=live, index_bytes=8)}")
     return k3
@@ -1585,6 +1621,66 @@ def phase_k4(gen):
         del table, accum, ids, gy, cg, uniq, touched
         torch.cuda.empty_cache()
     return worst, flagship_t
+
+
+def k5_bound_ms(n, id_bytes, sid_bytes=4):
+    """K5's least time for ``n`` positions at the data sheet's HBM rate: the
+    ids read once, the sorted ids and sample ids written once."""
+    return n * (2 * id_bytes + sid_bytes) / bench.H100_HBM_BYTES_PER_S * 1e3
+
+
+def k5_design_ms(n, id_bytes, passes, sid_bytes=4):
+    """The bytes K5's own design moves, at the same rate: the ids read for the
+    digit counts and by the first pass, 4-byte keys and positions written
+    and read between passes, the sorted ids and sample ids written."""
+    return (n * (2 * id_bytes + 16 * (passes - 1) + id_bytes + sid_bytes)
+            / bench.H100_HBM_BYTES_PER_S * 1e3)
+
+
+def phase_k5(gen):
+    """K5 against the plain route at ``K4_SHAPES``' lookups: int64 power-law
+    ids, 1% of them the sentinel (at most one value at or past the rows, so
+    the two agree bit for bit); one counted launch each, with the plain
+    route forbidden, then the plain route on the same ids. Then K5 timed
+    beside its bound, its design's bytes and the plain route. Returns the
+    flagship's times."""
+    flagship_t = None
+    for label, rows, _, hotness, alpha in K4_SHAPES:
+        perm = torch.randperm(rows, device="cuda", generator=gen)
+        ids = perm[card_ids(rows, hotness, alpha, gen)].reshape(-1)
+        del perm
+        ids = torch.where(torch.rand(ids.shape, device="cuda", generator=gen) < 0.01,
+                          SENTINEL, ids)
+        n = ids.numel()
+        before = trace.counters()["launch.k5"]
+        with plain_path_forbidden(cuda_transforms):
+            got = cuda_transforms.coo_transpose_cuda(ids, rows, hotness=hotness)
+        torch.cuda.synchronize()
+        launches = trace.counters()["launch.k5"] - before
+        want = cuda_transforms.coo_transpose_torch(ids, rows, hotness=hotness)
+        same = all(torch.equal(g, w) and g.dtype == w.dtype for g, w in zip(got[:2], want[:2]))
+        bits, passes, _ = cuda_transforms.library_plan(n, rows)
+        print(f"[k5 {label}] {n} positions, {bits} key bits in {passes} passes: {launches} "
+              f"launch, bit for bit the plain route: {same}")
+        if launches != 1 or not same:
+            raise SystemExit(f"[k5 {label}] K5 is off the plain route")
+        del got, want
+        k = bench.cuda_time_ms(lambda: cuda_transforms.coo_transpose_cuda(ids, rows,
+                                                                        hotness=hotness))
+        p = bench.cuda_time_ms(lambda: cuda_transforms.coo_transpose_torch(ids, rows,
+                                                                         hotness=hotness),
+                               warmup=1, iters=5)
+        b, dsn = k5_bound_ms(n, 8), k5_design_ms(n, 8, passes)
+        print(f"[k5 {label}] K5 {k:.4f} ms; bound {b:.4f} ms (the ids read and the sorted ids "
+              f"and sample ids written once, at {HBM_PEAK}), K5 at {b / k:.1%} of it; its "
+              f"design's bytes {dsn:.4f} ms; the plain route (torch.sort, the sample ids, "
+              f"two gathers) {p:.4f} ms")
+        if flagship_t is None:
+            flagship_t = {"ms": k, "plain_ms": p, "bound_ms": b, "bound_by": "bytes",
+                          "design_bytes_ms": dsn, "positions": n, "passes": passes}
+        del ids
+        torch.cuda.empty_cache()
+    return flagship_t
 
 
 @contextlib.contextmanager
@@ -1810,10 +1906,12 @@ def phase_p7_training(bag, idx, hot_idx, gen):
 
     weight.grad = None
     # The dense step with tiered_cfg and the split: K3 full; the split's
-    # compressed form, SGD and AdaGrad: K3 compressed; AdaGrad: K4.
+    # compressed form, SGD and AdaGrad: K3 compressed; AdaGrad: K4; K5 for
+    # the dense step's backward and the two updates (the split's COOs are
+    # sorted here, on the plain route).
     launches = np.array((1, 0, 2, 3))
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(launches, "p7 training", k4=1)):
+          counted(launches, "p7 training", k4=1, k5=3)):
         bag(idx, tiered_cfg=cfg).backward(gy)
         split_grad = split(idx)
         split_c = embedding_backward_compressed_tiered(gy32, NUM_ROWS, idx, None,
@@ -1960,7 +2058,7 @@ def phase_tables_table(gen, idx, calib_ids, flat, offsets, csr_w):
             ("adagrad", (0, 0, 0, 1), 1, lambda: train.rowwise_adagrad_sparse_update(
                 t.table, accum, rows, gy, lr=ADAGRAD_LR)),
         ):
-            with counted(expect, f"p8 table {name}", k4=k4):
+            with counted(expect, f"p8 table {name}", k4=k4, k5=k4):
                 out = fn()
             launches += expect
             if name.startswith(("lookup", "csr")):
@@ -2037,9 +2135,9 @@ def phase_tables_fused(gen, seed):
             per = coll.apply(tables, ids)
         if trace.counters()["launch.k1_batch"] != batches + 1:
             raise SystemExit("[p8 collection apply] not one call of the batched forward")
-        with counted((0, 0, 0, 1), "p8 fused_adagrad_update", k4=1):
+        with counted((0, 0, 0, 1), "p8 fused_adagrad_update", k4=1, k5=1):
             tce.fused_adagrad_update(fused, facc, spec, ids, gys, lr=ADAGRAD_LR)
-        with counted((0, 0, 0, T), "p8 collection adagrad_update", k4=T):
+        with counted((0, 0, 0, T), "p8 collection adagrad_update", k4=T, k5=T):
             coll.adagrad_update(tables, accs, ids, gys, lr=ADAGRAD_LR)
     # The plain path on the same inputs: the lookups (tables before the
     # update: the fused copy) and the fused update's rows, as
@@ -2175,7 +2273,8 @@ def phase_dlrm(gen, seed):
         label = f"K3 path, {name}"
         losses[label], host, dev = [], [], []
         with plain_path_forbidden(cuda_forward, cuda_backward, dispatch):
-            with counted((n * DLRM_STEPS, 0, n * DLRM_STEPS, 0), f"p9 dlrm {name} steps"):
+            with counted((n * DLRM_STEPS, 0, n * DLRM_STEPS, 0), f"p9 dlrm {name} steps",
+                         k5=n * DLRM_STEPS):
                 for step in range(DLRM_STEPS):
                     loss, h, d = events_ms(
                         lambda: m.sgd_step(dense, sparse, labels, DLRM_LR))
@@ -2233,7 +2332,7 @@ def phase_trainer(gen):
     launches = np.array((n, 0, 0, n))
     # Each step's adagrad_update: K3 compressed and K4 a table.
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(launches, "p9 trainer", k4=n)):
+          counted(launches, "p9 trainer", k4=n, k5=n)):
         rate = trainer.main([])
     print(f"[p9 trainer] examples/train_dlrm_torch.py, defaults ({d.tables} tables x "
           f"{d.categories} x {d.width}, batch {d.batch}, hotness {d.hotness}, "
@@ -2415,7 +2514,7 @@ def phase_offload(seed):
 
     before = full()
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted((0, 0, 0, 1), "p10 offload sgd_update")):
+          counted((0, 0, 0, 1), "p10 offload sgd_update", k5=1)):
         _, sgd_ms = timed(lambda: off.sgd_update(batch, gy, lr=OFF_SGD_LR))
     plain_t = before.clone()
     train.sgd_sparse_update(plain_t, idx, gy, lr=OFF_SGD_LR, backend="xla")
@@ -2428,7 +2527,8 @@ def phase_offload(seed):
         acc0 = torch.cat([off.head_accum, torch.from_numpy(off.tail_accum).cuda()])
         b = off.prepare(batches[0])
         with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-              counted((0, 0, 0, 1), f"p10 offload adagrad_update {step + 1}", k4=1)):
+              counted((0, 0, 0, 1), f"p10 offload adagrad_update {step + 1}", k4=1,
+                      k5=1)):
             _, ms = timed(lambda: off.adagrad_update(b, gy, lr=ADAGRAD_LR))
         ada_ms.append(ms)
         plain_t, plain_a = before.clone(), acc0.clone()
@@ -3508,7 +3608,7 @@ def phase_planner(seed):
         try:
             with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
                   counted(PLAN_EXAMPLE_EXPECT[1], "planner example, NCCL, world size 1",
-                          k4=PLAN_EXAMPLE_K4[1])):
+                          k4=PLAN_EXAMPLE_K4[1], k5=PLAN_EXAMPLE_EXPECT[1][3])):
                 one = example.train(args, torch.device("cuda", 0), record=(0, args.steps - 1))
             launches += np.array(PLAN_EXAMPLE_EXPECT[1])
             e1_one, e3_one = check_planned_example("NCCL", [one], (1, 1))
@@ -3769,7 +3869,8 @@ def main():
     train_launches = np.array((DENSE_STEPS + ADAGRAD_STEPS + 1, 2, DENSE_STEPS + 3,
                                ADAGRAD_STEPS + 1))
     with (plain_path_forbidden(cuda_forward, cuda_backward, dispatch),
-          counted(train_launches, "training path", k4=ADAGRAD_STEPS)):
+          counted(train_launches, "training path", k4=ADAGRAD_STEPS,
+                  k5=train_launches[2] + train_launches[3])):
         keep = drive_training(tbag, idx, flat, offsets, csr_w)
     dense_gy = keep["dense"][1]
     print(f"[training path] {DENSE_STEPS} dense steps (autograd + torch.optim.SGD; the "
@@ -3790,6 +3891,8 @@ def main():
     torch.cuda.empty_cache()
     # K4, row-wise AdaGrad's apply, at the flagship's and DLRM-v2's shapes.
     errs["K4"], k4_t = phase_k4(gen)
+    # K5, the COO transpose, at the same two lookups.
+    k5_t = phase_k5(gen)
 
     # 8. Tables, collections, fused groups, the DLRM and its trainer (ROADMAP
     # P8, P9), each counted; K1, K2 and K3 only.
@@ -3849,6 +3952,10 @@ def main():
           f"{trace.counters()['launch.k4'] - k4_from - K4_COUNTED['counted']}")
     if not k4_total:
         raise SystemExit("[main path] K4 never launched")
+    print(f"[main path] K5 launches of this process's counted runs: {K5_COUNTED['counted']}")
+    if K5_COUNTED["counted"] != K5_TOTAL:
+        raise SystemExit(f"[main path] K5 launched {K5_COUNTED['counted']} times in the "
+                         f"counted runs, expected {K5_TOTAL}")
     kernels = []
     for name, source, replaces, t, n in (
         ("K1 fixed_forward_kernel", "forward.cu", "pallas_forward.py:55", fixed_t,
@@ -3873,6 +3980,14 @@ def main():
                     "(cuembed_tpu/train.py apply_compressed)",
         "launches": int(k4_total), "max_err_over_bound": errs["K4"],
         **k4_t, "card": kind, "power_limit": power_limit,
+    })
+    kernels.append({
+        "name": "K5 histogram_kernel + digit_pass_kernel", "route": "cuda",
+        "source": "cuembed_tpu_torch/csrc/transpose.cu",
+        "replaces": "no Pallas kernel: torch.sort and the COO's gathers "
+                    "(the JAX package's lax.sort)",
+        "launches": int(K5_COUNTED["counted"]), "bit_for_bit": True,
+        **k5_t, "card": kind, "power_limit": power_limit,
     })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())

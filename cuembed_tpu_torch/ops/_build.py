@@ -1,15 +1,16 @@
 """Build and load the kernels' shared library.
 
-``csrc/forward.cu`` (K1, K2), ``csrc/backward.cu`` (K3) and
-``csrc/adagrad.cu`` (K4) are compiled by ``nvcc`` for ``sm_90a``, one
-``nvcc`` per source, all started together, then linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs
-at the first CUDA use, into ``cuembed_tpu_torch/_build/``, and the
+``csrc/forward.cu`` (K1, K2), ``csrc/backward.cu`` (K3),
+``csrc/adagrad.cu`` (K4) and ``csrc/transpose.cu`` (K5) are compiled by
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
+then linked into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs at the first CUDA use, into
+``cuembed_tpu_torch/_build/``, and the
 library's name carries a hash of the sources, the shared header and the
 flags, so a stale library is never loaded. A failed build raises with
 nvcc's output. The log beside the library ends with each ``nvcc``'s wall
 time and the build's.
-Every kernel wrapper (K1-K4) launches through :func:`launch`.
+Every kernel wrapper (K1-K5) launches through :func:`launch`.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from cuembed_tpu_torch.utils import trace
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("forward.cu", "backward.cu", "adagrad.cu")
+SOURCES = ("forward.cu", "backward.cu", "adagrad.cu", "transpose.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -180,6 +181,17 @@ def load_library() -> ctypes.CDLL:
         ptr,  # shape: int64[4]
     ]
     lib.cuembed_rowwise_adagrad_apply_shape.restype = i32
+    lib.cuembed_coo_transpose_plan.argtypes = [i64, i64, ptr]  # n, num_rows, out: int64[3]
+    lib.cuembed_coo_transpose_plan.restype = i32
+    lib.cuembed_coo_transpose.argtypes = [
+        ptr, i32, i64, i64,  # ids, id_bytes, n, num_rows
+        i64, ptr, i32,  # hotness, sample_ids, sid_bytes
+        ptr, i32,  # coeff, coeff_bytes
+        ptr, ptr, ptr,  # t_idx, t_sid, t_coeff
+        ptr, i64,  # scratch, scratch_bytes
+        ptr,  # stream
+    ]
+    lib.cuembed_coo_transpose.restype = i32
     if lib.cuembed_coo_backward_tile() != K3_TILE:
         raise RuntimeError(f"K3 was built for tiles of {lib.cuembed_coo_backward_tile()} "
                            f"positions, its wrapper sizes its scratch for {K3_TILE}")

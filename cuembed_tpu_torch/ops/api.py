@@ -4,8 +4,9 @@
 Same signatures as the JAX package. The lookup is a
 ``torch.autograd.Function`` (the JAX ``custom_vjp``): its forward saves only
 ``(table, indices, offsets, weights)``, and its backward flattens the lookup
-to a COO, sorts it by index (``transforms.transpose``) and sums each index's
-run on K3 (``dispatch.backward``), deterministically and without atomics.
+to a COO, sorts it by index on K5 (``dispatch.transpose``) and sums each
+index's run on K3 (``dispatch.backward``), deterministically and without
+atomics.
 A ``tiered_cfg`` changes no gradient, so the backward takes K3 over the
 whole COO with or without one: the JAX backward's split into a head product
 and a sum of the rest (kept as
@@ -23,10 +24,7 @@ import torch
 
 from cuembed_tpu_torch.ops import dispatch
 from cuembed_tpu_torch.ops.lookup_torch import SENTINEL, rounded_reciprocal
-from cuembed_tpu_torch.ops.transforms import (
-    extract_row_ids_from_csr,
-    transpose_position_ordered,
-)
+from cuembed_tpu_torch.ops.transforms import extract_row_ids_from_csr, fixed_sample_ids
 from cuembed_tpu_torch.types import CombineMode, accumulation_dtype, check_index_dtype
 from cuembed_tpu_torch.utils import trace
 
@@ -214,17 +212,18 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
     acc_dt = accumulation_dtype(table.dtype, low_precision_math)
     device = table.device
 
-    # --- Flatten to COO: (flat_idx, sample_ids, coeff) ---------------------
+    # --- Flatten to COO: (flat_idx, sample ids, coeff) ---------------------
+    # A fixed lookup's sample ids are its positions // hotness (the
+    # transpose makes them); a CSR lookup's come from its offsets.
+    sample_ids = None
     if offsets is None:
         batch, hotness = indices.shape
         nnz_cap = batch * hotness
         flat_idx = indices.reshape(-1)
-        pos = torch.arange(nnz_cap, dtype=torch.int32, device=device)
         if mode == CombineMode.CONCAT:
-            sample_ids = pos  # one grad_y row per position
+            hotness = 1  # one grad_y row per position
             grad_rows_in = grad_y.reshape(nnz_cap, width)
         else:
-            sample_ids = pos // hotness
             grad_rows_in = grad_y
         nnz = None
         live = None
@@ -234,6 +233,7 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
         live = pos < offsets[-1]
         # Padded entries get an out-of-range sentinel so they sort last.
         flat_idx = torch.where(live, indices, torch.full_like(indices, SENTINEL))
+        hotness = None
         sample_ids = extract_row_ids_from_csr(offsets, indices).to(torch.int32)
         grad_rows_in = grad_y
         nnz = offsets[-1]
@@ -261,7 +261,9 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
 
     grad_table = None
     if need_table:
-        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+        t_idx, t_sid, t_coeff = dispatch.transpose(
+            flat_idx, num_categories, hotness=hotness, sample_ids=sample_ids, coeff=coeff,
+            backend=backend)
         # CSR: a calibrated live capacity bounds the work (no result change).
         live_cap = (tiered.csr_live_cap
                     if tiered is not None and offsets is not None
@@ -281,6 +283,8 @@ def _lookup_bwd(cfg, table, indices, offsets, weights, grad_y, *, need_table=Tru
     # --- Gradient w.r.t. weights (an extension beyond the reference) -------
     grad_weights = None
     if weights is not None and need_weights:
+        if sample_ids is None:
+            sample_ids = fixed_sample_ids(nnz_cap, hotness, device=device)
         safe_idx = flat_idx.clamp(0, num_categories - 1)
         dw = torch.empty(nnz_cap, dtype=acc_dt, device=device)
         for p0 in range(0, nnz_cap, _WEIGHTS_GRAD_SLICE):

@@ -4,8 +4,8 @@
 The JAX backend names carry over so that callers do not change:
 
 * ``"auto"`` and ``"pallas"``: the hand-written kernels (K1 fixed, K2 CSR,
-  K3 backward, K4 row-wise AdaGrad's apply) for CUDA tensors, the plain
-  PyTorch version for CPU tensors;
+  K3 backward, K4 row-wise AdaGrad's apply, K5 the COO transpose) for CUDA
+  tensors, the plain PyTorch version for CPU tensors;
 * ``"xla"``: the plain PyTorch version on every device;
 * ``"tiered"``: :func:`~cuembed_tpu_torch.ops.tiered.tiered_forward` with
   the caller's ``tiered_cfg`` or the JAX package's automatic one, which
@@ -29,7 +29,8 @@ plain path; the config changes no gradient either
 (:mod:`~cuembed_tpu_torch.ops.api`). The JAX package's hint about a large
 table served without tiering concerns the TPU only and is not emitted.
 Unlike the TPU, where the Pallas backward was opt-in, K3 is the backward of
-every backend but ``"xla"`` on CUDA. CONCAT is a pure gather and goes to
+every backend but ``"xla"`` on CUDA, and so are K4 (the AdaGrad apply) and
+K5 (the COO transpose before K3). CONCAT is a pure gather and goes to
 ``index_select`` on every device.
 
 This module alone decides which kernel serves a lookup.
@@ -39,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from cuembed_tpu_torch.ops import cuda_adagrad, cuda_backward, cuda_forward
+from cuembed_tpu_torch.ops import cuda_adagrad, cuda_backward, cuda_forward, cuda_transforms
 from cuembed_tpu_torch.ops import narrow as narrow_mod
 from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
@@ -179,6 +180,26 @@ def forward_many(tables, indices, weights, modes, *, backend: str = "auto") -> l
             *([seq[k] for k in k1] for seq in (tables, indices, weights, modes)))):
         outs[k] = out
     return outs
+
+
+def transpose(
+    ids: torch.Tensor,
+    num_rows: int,
+    *,
+    hotness: int | None = None,
+    sample_ids: torch.Tensor | None = None,
+    coeff: torch.Tensor | None = None,
+    backend: str = "auto",
+):
+    """Route the COO transpose (the lookup's positions sorted by id, stably,
+    as the backward takes them) to K5 under every backend but ``"xla"``, as
+    K3 and K4 are routed, or to the plain version, ``torch.sort``, under
+    ``"xla"``; CPU tensors take the plain version under every backend
+    (arguments and results: :mod:`~cuembed_tpu_torch.ops.cuda_transforms`)."""
+    _check_backend(backend)
+    fn = (cuda_transforms.coo_transpose_torch if backend == "xla"
+          else cuda_transforms.coo_transpose_cuda)
+    return fn(ids, num_rows, hotness=hotness, sample_ids=sample_ids, coeff=coeff)
 
 
 def backward(

@@ -1,8 +1,11 @@
 """Index transforms, the counterpart of ``cuembed_tpu/ops/transforms.py``:
 row-id extraction, the COO transpose (a stable sort by index, tie-broken on
 sample id) and the compressed-gradient remapping; and the CSR densifier
-``csr_to_fixed`` (``cuembed_tpu/ops/pallas_forward.py``). ``torch.sort`` is
-the sort; none of these needs a kernel of its own.
+``csr_to_fixed`` (``cuembed_tpu/ops/pallas_forward.py``). These are plain
+PyTorch: ``torch.sort`` is their sort. On the card the update's and the
+backward's transpose is K5 (``ops/cuda_transforms.py``, routed by
+``dispatch.transpose``), whose plain version is
+:func:`transpose_position_ordered`.
 """
 
 from __future__ import annotations
@@ -10,6 +13,19 @@ from __future__ import annotations
 import torch
 
 from cuembed_tpu_torch.types import CombineMode
+
+
+def fixed_sample_ids(
+    n: int,
+    hotness: int,
+    dtype: torch.dtype = torch.int32,
+    *,
+    device: torch.device | str,
+) -> torch.Tensor:
+    """The sample ids of a fixed-hotness lookup's first ``n`` flattened
+    positions: ``position // hotness`` (hotness 1 for CONCAT, whose grad_y
+    has a row a position). K5 computes the same in its last pass."""
+    return torch.arange(n, dtype=dtype, device=device) // hotness
 
 
 def extract_row_ids_from_fixed(
@@ -20,7 +36,7 @@ def extract_row_ids_from_fixed(
     device: torch.device | str,
 ) -> torch.Tensor:
     """``row_ids[i] = i // hotness``."""
-    return torch.arange(batch * hotness, dtype=dtype, device=device) // hotness
+    return fixed_sample_ids(batch * hotness, hotness, dtype, device=device)
 
 
 def extract_row_ids_from_csr(offsets: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -43,7 +59,7 @@ def extract_row_ids_for_concat(
     nnz: int, dtype: torch.dtype = torch.int32, *, device: torch.device | str
 ) -> torch.Tensor:
     """Identity sequence."""
-    return torch.arange(nnz, dtype=dtype, device=device)
+    return fixed_sample_ids(nnz, 1, dtype, device=device)
 
 
 def _permute(order, sample_ids, indices, weights):

@@ -35,7 +35,6 @@ from torch.distributed.device_mesh import DeviceMesh
 from cuembed_tpu_torch.ops import dispatch
 from cuembed_tpu_torch.ops.head import head_grad
 from cuembed_tpu_torch.ops.lookup_torch import SENTINEL
-from cuembed_tpu_torch.ops.transforms import transpose_position_ordered
 from cuembed_tpu_torch.parallel.alltoall_lookup import _local_nnz
 from cuembed_tpu_torch.parallel.collectives import all_gather, all_to_all, any_across
 from cuembed_tpu_torch.parallel.sharding import (
@@ -323,7 +322,7 @@ def _hybrid_head_grad(idx_l, offs_l, flat, sids, coeff, gy, hot):
             flat.shape[0], dtype=torch.float32, device=flat.device)
         return head_grad(flat[:, None], cpos[:, None], gy_rows, hot, torch.float32)
     masked = torch.where(flat < hot, flat, torch.full_like(flat, SENTINEL))
-    t_idx, t_sid, t_coeff = transpose_position_ordered(sids, masked, coeff)
+    t_idx, t_sid, t_coeff = dispatch.transpose(masked, hot, sample_ids=sids, coeff=coeff)
     cg = dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff)
     nu = min(int(cg.num_unique), cg.rows.shape[0])
     rows, uniq = cg.rows[:nu], cg.unique_indices[:nu]

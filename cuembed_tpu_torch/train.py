@@ -10,9 +10,9 @@ apply the embedding gradient sparsely instead:
   embedding: dense parameters keep autograd, the table takes its update
   from the sparse routines below.
 * :func:`sgd_sparse_update`, :func:`rowwise_adagrad_sparse_update` and
-  :func:`adam_sparse_update` sort the lookup's COO by index, sum each
-  index's run on K3 in compressed mode (``dispatch.backward_compressed``),
-  and update one row per distinct index.
+  :func:`adam_sparse_update` sort the lookup's COO by index on K5
+  (``dispatch.transpose``), sum each index's run on K3 in compressed mode
+  (``dispatch.backward_compressed``), and update one row per distinct index.
 * Row-wise AdaGrad applies its step on K4
   (``dispatch.rowwise_adagrad_apply``) to K3's output as it lies on the
   card: K4 reads the row count there, so the untiered update reads nothing
@@ -49,10 +49,7 @@ from cuembed_tpu_torch.ops.lookup_torch import (
     CompressedGrad,
     embedding_backward_compressed_tiered,
 )
-from cuembed_tpu_torch.ops.transforms import (
-    extract_row_ids_from_csr,
-    transpose_position_ordered,
-)
+from cuembed_tpu_torch.ops.transforms import extract_row_ids_from_csr, fixed_sample_ids
 from cuembed_tpu_torch.types import CombineMode, default_device
 from cuembed_tpu_torch.utils import trace
 
@@ -67,28 +64,28 @@ def embedding_grad_y(loss_fn, pooled, *args, **kwargs) -> torch.Tensor:
     return grad
 
 
-def _flatten_coo(indices, offsets, weights, mode, acc_dt):
-    """The lookup as a COO: ``(flat_idx, sample_ids, coeff)``. ``coeff`` is
-    None when every position has coefficient one (callers fold MEAN's
-    uniform scale into grad_y). CSR padding gets index 0 and coefficient 0."""
+def _coo(indices, offsets, weights, mode, acc_dt):
+    """The lookup as a COO, in the form :func:`dispatch.transpose
+    <cuembed_tpu_torch.ops.dispatch.transpose>` takes it: ``(flat_idx,
+    hotness, sample_ids, coeff)``. A fixed-hotness lookup gives its hotness
+    (a position's sample is the position // it; 1 for CONCAT, whose grad_y
+    has one row per position) and no sample ids, a CSR lookup its sample ids
+    and no hotness. ``coeff`` is None when every position has coefficient one
+    (callers fold MEAN's uniform scale into grad_y). CSR padding gets index 0
+    and coefficient 0."""
     if offsets is None:
-        batch, hotness = indices.shape
-        n = batch * hotness
         flat_idx = indices.reshape(-1)
-        pos = torch.arange(n, dtype=torch.int32, device=indices.device)
         if mode == CombineMode.CONCAT:
-            # CONCAT's grad_y has one row per (sample, position).
             if weights is not None:
                 raise ValueError("weights unsupported with CONCAT")
-            sample_ids = pos
-        else:
-            sample_ids = pos // hotness
+            return flat_idx, 1, None, None
+        hotness = indices.shape[1]
         if weights is None:
-            return flat_idx, sample_ids, None
+            return flat_idx, hotness, None, None
         coeff = weights.reshape(-1).to(acc_dt)
         if mode == CombineMode.MEAN:
             coeff = coeff / hotness
-        return flat_idx, sample_ids, coeff
+        return flat_idx, hotness, None, coeff
     n = indices.shape[0]
     live = torch.arange(n, device=indices.device) < offsets[-1]
     flat_idx = torch.where(live, indices, torch.zeros_like(indices))
@@ -100,6 +97,15 @@ def _flatten_coo(indices, offsets, weights, mode, acc_dt):
         hot = (offsets[1:] - offsets[:-1]).to(acc_dt)
         inv = torch.where(hot == 0, torch.zeros_like(hot), 1.0 / hot.clamp(min=1.0))
         coeff = coeff * inv[sample_ids.long()]
+    return flat_idx, None, sample_ids, coeff
+
+
+def _flatten_coo(indices, offsets, weights, mode, acc_dt):
+    """The lookup as a COO with its sample ids: ``(flat_idx, sample_ids,
+    coeff)`` (int32 sample ids; otherwise as :func:`_coo`)."""
+    flat_idx, hotness, sample_ids, coeff = _coo(indices, offsets, weights, mode, acc_dt)
+    if sample_ids is None:
+        sample_ids = fixed_sample_ids(flat_idx.shape[0], hotness, device=flat_idx.device)
     return flat_idx, sample_ids, coeff
 
 
@@ -129,14 +135,15 @@ def _compressed_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
     gy = grad_y.to(torch.float32)
     if weights is None and offsets is None and mode == CombineMode.MEAN:
         gy = gy * (1.0 / indices.shape[1])  # the uniform coefficient folds into gy
-    flat_idx, sample_ids, coeff = _flatten_coo(indices, offsets, weights, mode,
-                                               torch.float32)
+    flat_idx, hotness, sample_ids, coeff = _coo(indices, offsets, weights, mode, torch.float32)
     if drop_zero_coeff and coeff is not None:
         flat_idx = torch.where(coeff != 0, flat_idx, torch.full_like(flat_idx, SENTINEL))
     head = _head_rows(table, tiered_cfg, offsets, mode)
     if head > 0 and (drop_past_capacity or unique_cap is not None):
         masked = torch.where(flat_idx < head, SENTINEL, flat_idx)
-        t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, masked, coeff)
+        t_idx, t_sid, t_coeff = dispatch.transpose(
+            masked, table.shape[0], hotness=hotness, sample_ids=sample_ids, coeff=coeff,
+            backend=backend)
         if drop_past_capacity:
             k = nonhead_capacity(tiered_cfg, t_idx.shape[0])
             t_idx, t_sid = t_idx[:k], t_sid[:k]
@@ -145,7 +152,9 @@ def _compressed_sums(table, indices, grad_y, offsets, weights, mode, backend, *,
             gy.contiguous(), table.shape[0], indices,
             None if coeff is None else coeff.reshape(indices.shape),
             t_idx, t_sid, t_coeff, tiered_cfg, unique_cap=unique_cap, backend=backend)
-    t_idx, t_sid, t_coeff = transpose_position_ordered(sample_ids, flat_idx, coeff)
+    t_idx, t_sid, t_coeff = dispatch.transpose(
+        flat_idx, table.shape[0], hotness=hotness, sample_ids=sample_ids, coeff=coeff,
+        backend=backend)
     return dispatch.backward_compressed(gy.contiguous(), t_idx, t_sid, t_coeff,
                                         backend=backend)
 

@@ -33,9 +33,9 @@ The spans, from the entry point down:
 * ``api.lookup``: one ``embedding_lookup`` / ``embedding_lookup_csr`` (index
   preparation, the checks, the ``autograd.Function``).
 * ``dispatch.forward``, ``dispatch.backward_compressed``: the routing.
-* ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k4``: a kernel's
-  launch (``ops/_build.py::launch``): the device guard, the stream handle,
-  the ctypes call and its error check.
+* ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k4``, ``launch.k5``:
+  a kernel's launch (``ops/_build.py::launch``): the device guard, the
+  stream handle, the ctypes call and its error check.
 * ``launch.k1_batch``: the same for the one ctypes call of a list-form
   forward (``api.embedding_lookup_many``, ``collection.apply``'s route for
   its fixed-hotness tables on the card), which launches K1 for every lookup
@@ -54,6 +54,8 @@ compare two snapshots for the counts in between. There is no reset.
 * ``launch.k1``, ``launch.k2``, ``launch.k3_full``, ``launch.k3_compressed``,
   ``launch.k4``: kernel launches (a CUDA graph counts its captures, not its
   replays), the batched forward's K1 launches among them;
+* ``launch.k5``: COO transposes K5 served, one a call of its wrapper (its
+  zero fill, digit count and digit passes);
 * ``launch.k1_batch``: calls of the list-form forward into the library,
   one a device;
 * ``collection.batched_tables``: lookups the list-form forward served,
@@ -77,8 +79,8 @@ PREFIX = "cuembed::"
 
 COUNTS = dict.fromkeys(
     ("launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed", "launch.k4",
-     "launch.k1_batch", "collection.batched_tables", "wait.num_unique", "wait.keep_mask",
-     "build"), 0)
+     "launch.k5", "launch.k1_batch", "collection.batched_tables", "wait.num_unique",
+     "wait.keep_mask", "build"), 0)
 _OFF = contextlib.nullcontext()
 
 

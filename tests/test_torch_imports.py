@@ -102,7 +102,7 @@ def test_imports_run_down_the_layers():
     pkg = ROOT / "cuembed_tpu_torch"
     wrappers = sorted((pkg / "ops").glob("cuda_*.py"))
     assert {p.name for p in wrappers} == {"cuda_forward.py", "cuda_backward.py",
-                                          "cuda_adagrad.py"}
+                                          "cuda_adagrad.py", "cuda_transforms.py"}
     up = [m for m in _imported_names(pkg / "collection.py")
           if m.startswith("cuembed_tpu_torch.ops.cuda_")]
     assert not up, up

@@ -5,10 +5,10 @@ give the spans of each host layer, nested, which the benchmark's trace
 reduction keeps as they are; the AdaGrad update waits for nothing, and each
 ``wait.*`` span of an SGD update is a ``wait.*`` count; with no profiler
 recording no span is entered; a compile of the library is counted and
-spanned. On the card (``-m cuda``): K1's, K3's and K4's kernels link to their
-launch spans by correlation id, a lookup and an AdaGrad update read nothing
-back to the host, and every host read of an SGD update is inside a
-``wait.*`` span.
+spanned. On the card (``-m cuda``): K1's, K3's, K4's and K5's kernels link to
+their launch spans by correlation id, a lookup and an AdaGrad update read
+nothing back to the host (the update transposes once a table on K5), and
+every host read of an SGD update is inside a ``wait.*`` span.
 """
 
 import stat
@@ -131,7 +131,7 @@ def test_adagrad_update_waits_for_nothing(traced):
 def test_counters_are_snapshots():
     c = trace.counters()
     assert set(c) == {"launch.k1", "launch.k2", "launch.k3_full", "launch.k3_compressed",
-                      "launch.k4", "launch.k1_batch", "collection.batched_tables",
+                      "launch.k4", "launch.k5", "launch.k1_batch", "collection.batched_tables",
                       "wait.num_unique", "wait.keep_mask", "build"}
     c["wait.num_unique"] += 100
     assert trace.counters()["wait.num_unique"] == c["wait.num_unique"] - 100
@@ -200,12 +200,14 @@ def card():
 K1 = ("fixed_forward_kernel",)
 K3 = ("coo_backward_kernel", "coo_backward_fixup_kernel", "run_count_kernel", "run_scan_kernel")
 K4 = ("rowwise_adagrad_apply_kernel",)
+K5 = ("histogram_kernel", "digit_pass_kernel")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("launch,kernels,spans", [
-    ("launch.k1_batch", K1, 1), ("launch.k3", K3, TABLES), ("launch.k4", K4, TABLES)],
-    ids=["k1", "k3", "k4"])
+    ("launch.k1_batch", K1, 1), ("launch.k3", K3, TABLES), ("launch.k4", K4, TABLES),
+    ("launch.k5", K5, TABLES)],
+    ids=["k1", "k3", "k4", "k5"])
 def test_kernels_link_to_their_launch_span(card, launch, kernels, spans):
     """On the card the collection's lookups take the batched forward: every
     table's K1 links to its one ``launch.k1_batch`` span."""
@@ -263,6 +265,7 @@ def test_an_adagrad_update_reads_nothing_back(card):
         torch.cuda.set_sync_debug_mode(0)
     after = trace.counters()
     assert after["launch.k4"] - before["launch.k4"] == TABLES
+    assert after["launch.k5"] - before["launch.k5"] == TABLES
     assert [after[w] - before[w] for w in WAITS] == [0, 0]
 
 
